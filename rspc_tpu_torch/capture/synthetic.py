@@ -4,8 +4,9 @@ walls of a textured room plus five floor-standing boxes, with a
 procedural checker + stripe texture that gives the RGB Canny extractor
 real edges. Depth is z-depth in Z16 millimetre units (depth_scale 0.001).
 
-Frames render on whatever device the caller names, so the benchmark
-workload needs nothing from the JAX package. The IMU stream and
+Frames render on the device the caller names (the card by default;
+tests pass ``device="cpu"``), so the benchmark workload needs nothing
+from the JAX package. The IMU stream and
 ``thetas()`` are not ported yet (ROADMAP.md Queue A).
 """
 
@@ -192,7 +193,8 @@ class SyntheticSequence:
         """Maps frame-i camera coords into frame-0 camera coords."""
         return np.linalg.inv(self.poses[0]) @ self.poses[i]
 
-    def frames(self, device="cpu"):
+    def frames(self, device="cuda"):
+        """``(depth_z16, color)`` per frame, rendered on ``device``."""
         for i, p in enumerate(self.poses):
             depth, color = render_frame(torch.from_numpy(p).to(device), self.intr)
             if self.texture_contrast != 1.0:
@@ -206,7 +208,8 @@ class SyntheticSequence:
                 depth = torch.from_numpy(noisy.astype(np.int32)).to(device)
             yield depth, color
 
-    def clouds(self, device="cpu", bgr: bool = False):
+    def clouds(self, device="cuda", bgr: bool = False):
+        """The deprojected ``OrganizedCloud`` of every frame, on ``device``."""
         return [
             rgbd_to_organized_cloud(depth, color, self.intr, bgr=bgr)
             for depth, color in self.frames(device)

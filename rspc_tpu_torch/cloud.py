@@ -94,9 +94,10 @@ class Cloud(_TensorFields):
         rgb: Optional[np.ndarray] = None,
         capacity: Optional[int] = None,
         valid: Optional[np.ndarray] = None,
-        device="cpu",
+        device="cuda",
     ) -> "Cloud":
-        """Padded Cloud from host arrays; without ``valid``, non-finite or
+        """Padded Cloud from host arrays, on ``device`` (the card unless
+        the caller names the CPU); without ``valid``, non-finite or
         z == 0 points are invalid (same rule as the JAX package)."""
         xyz = np.asarray(xyz, np.float32).reshape(-1, 3)
         n = xyz.shape[0]
@@ -172,8 +173,10 @@ class OrganizedCloud(_TensorFields):
         xyz: np.ndarray,
         rgb: Optional[np.ndarray] = None,
         valid: Optional[np.ndarray] = None,
-        device="cpu",
+        device="cuda",
     ) -> "OrganizedCloud":
+        """Organized cloud from host ``[H, W, 3]`` arrays, on ``device``
+        (the card unless the caller names the CPU)."""
         xyz = np.asarray(xyz, np.float32)
         if xyz.ndim != 3 or xyz.shape[-1] != 3:
             raise ValueError(f"xyz must be [H,W,3], got {xyz.shape}")

@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
-one shared library with a plain C interface, under ``_build/`` keyed by a
-hash of the sources (so an edited kernel rebuilds and a cached build is
-reused), and ``ctypes`` binds it. Nothing here runs at import: the CPU
-test suite imports every module on a machine without ``nvcc``.
+On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` process per source, all started together) and links the
+objects into one shared library with a plain C interface, under
+``_build/`` keyed by a hash of the sources (so an edited kernel rebuilds
+and a cached build is reused), and ``ctypes`` binds it. Nothing here
+runs at import: the CPU test suite imports every module on a machine
+without ``nvcc``.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -30,8 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES = {"nn_sweep": 0, "hysteresis": 0}
-PLAIN_ON_CUDA = {"nn_sweep": 0, "hysteresis": 0}
+LAUNCHES = {"nn_sweep": 0, "nn_sweep_split": 0, "hysteresis": 0}
+PLAIN_ON_CUDA = {"nn_sweep": 0, "nn_sweep_split": 0, "hysteresis": 0}
 
 # C signatures: (name, argument types); every function returns int
 # (cudaError_t).
@@ -39,6 +41,9 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # src4, tgt4, live_hi, n, best_score, best_idx, stream
     "rspc_nn_sweep": (_VP, _VP, _VP, _I, _VP, _VP, _VP),
+    # src4, tgt4, live_hi, n, splits, part_score, part_idx, best_score,
+    # best_idx, stream
+    "rspc_nn_sweep_split": (_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP),
     # strong, weak, out, frames, h, w, stream
     "rspc_hysteresis": (_VP, _VP, _VP, _I, _I, _I, _VP),
     # max dynamic shared memory per block (bytes) -> int*
@@ -75,6 +80,17 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs, what: str) -> str:
+    """Wait for every process, then raise with the output of the first
+    that failed (so none is left running)."""
+    done = [(cmd, proc, *proc.communicate()) for cmd, proc in procs]
+    for cmd, proc, stdout, stderr in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    return "".join(stdout + stderr for _, _, stdout, stderr in done)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` (if not already built for these sources)
     and return the shared library's path."""
@@ -82,18 +98,27 @@ def build(verbose: bool = False) -> Path:
     lib = BUILD_DIR / f"librspc_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
+    tag = f"{source_hash()}.{os.getpid()}"
+    nvcc = _nvcc()
+    procs, objs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+               "-Xcompiler", "-fPIC", "-o", str(obj), str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    log = _run(procs, "nvcc")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    log += _run([(cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))], "nvcc link")
+    for obj in objs:
+        obj.unlink()
+    if verbose and log:
+        print(log, flush=True)
     os.replace(tmp, lib)
     return lib
 

@@ -5,6 +5,10 @@ State here is clouds, NDT grids and configs (the system has no weights).
 The numpy form of an ``rspc_tpu`` cloud is ``{"xyz", "rgb", "valid"}``
 plus ``"normal"`` where carried, as ``np.asarray`` of each field gives
 them; nothing here imports jax.
+
+This module is the CPU parity harness, not an entry point: its
+functions keep ``device="cpu"`` as their default, where the port's entry
+points default to the card.
 """
 
 from __future__ import annotations

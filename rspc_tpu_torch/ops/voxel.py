@@ -7,7 +7,15 @@ spatially uniform subset (hash-shuffled voxel order).
 Port notes: the uint32 hash runs in int64 with 32-bit masks (and split
 multiplies, so no product overflows); the two-key sort ``(hash, key)``
 becomes one sort of ``hash << 32 | key``; the dropped scatter rows of the
-JAX version (``mode="drop"``) are zeroed and sent to slot 0.
+JAX version (``mode="drop"``) are zeroed. The per-voxel sums are a
+segment sum over the sorted rows (``torch.segment_reduce``) instead of a
+scatter-add: on the card ``index_add_`` adds with float atomics in an
+order that changes from run to run, and a registration built on it does
+not repeat its own result (ICP's 1 cm correspondence cap turns last-bit
+differences in the voxel means into 1e-4 differences in a transform).
+The segment sum adds each voxel's points in a fixed order; on the CPU it
+is the scatter-add's order (ascending row), so the sums are unchanged
+there.
 """
 
 from __future__ import annotations
@@ -60,20 +68,23 @@ def voxel_downsample(
 
     new_seg = torch.ones((n,), dtype=torch.bool, device=dev)
     new_seg[1:] = skey[1:] != skey[:-1]
+    # voxel (segment) id of each sorted row, ascending: the kept voxels
+    # 0..max_points-1 are a prefix of the sorted rows
     seg_id = torch.cumsum(new_seg.to(torch.int32), dim=0) - 1
-    slot = torch.empty((n,), dtype=torch.int64, device=dev)
-    slot[perm] = seg_id.to(torch.int64)
-    keep = valid & (slot < max_points)
-    slot = torch.where(keep, slot, 0)
+    bounds = torch.searchsorted(
+        seg_id, torch.arange(max_points + 1, dtype=seg_id.dtype, device=dev))
+    lengths = bounds[1:] - bounds[:-1]
 
     cols = [torch.ones((n, 1), dtype=xyz.dtype, device=dev), xyz, rgb]
     if cloud.normal is not None:
         cols.append(cloud.normal)
     if cloud.cgrad is not None:
         cols.append(cloud.cgrad)
-    upd = torch.where(keep[:, None], torch.cat(cols, dim=-1), 0.0)
-    acc = torch.zeros((max_points, upd.shape[1]), dtype=xyz.dtype, device=dev)
-    acc.index_add_(0, slot, upd)
+    upd = torch.where(valid[:, None], torch.cat(cols, dim=-1), 0.0)
+    # unsafe: the rows past the kept voxels are left out, so the lengths
+    # sum to less than the row count
+    acc = torch.segment_reduce(upd.index_select(0, perm), "sum", lengths=lengths,
+                               axis=0, unsafe=True)
 
     counts = acc[:, 0]
     denom = torch.clamp(counts, min=1.0)[:, None]

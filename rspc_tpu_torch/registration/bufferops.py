@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from rspc_tpu_torch.cloud import OPTIONAL_VEC_FIELDS, Cloud, map_optional
+from rspc_tpu_torch.cloud import OPTIONAL_VEC_FIELDS, Cloud, OrganizedCloud, map_optional
 
 
 def merge_append(dst: Cloud, src: Cloud, gate=None) -> Cloud:
@@ -46,6 +46,33 @@ def merge_append(dst: Cloud, src: Cloud, gate=None) -> Cloud:
         valid=valid[:cap],
         **opt,
     )
+
+
+def _block_append(dst: Cloud, src: Cloud, offset: int, gate=None) -> Cloud:
+    """Append ``src``'s whole fixed-capacity buffer (invalid rows carried
+    along masked) at row ``offset``: one contiguous slice write instead
+    of merge_append's compacting scatter. The written set of valid points
+    is the same; only the slot layout differs (interior holes, which
+    every consumer masks). ``gate`` (bool tensor): when False the block
+    lands all invalid, so no host sync decides it.
+
+    Unlike the JAX package's ``dynamic_update_slice``, the write is IN
+    PLACE: ``dst``'s tensors are updated and ``dst`` itself is returned,
+    so a caller that still needs the old buffer must copy it first.
+    Caller guarantees ``offset + src.capacity <= dst.capacity``."""
+    rows = slice(offset, offset + src.capacity)
+    dst.xyz[rows] = src.xyz
+    dst.rgb[rows] = src.rgb
+    dst.valid[rows] = src.valid if gate is None else src.valid & gate
+    for name in OPTIONAL_VEC_FIELDS:
+        if getattr(dst, name) is not None and getattr(src, name) is not None:
+            getattr(dst, name)[rows] = getattr(src, name)
+    return dst
+
+
+def _as_unorganized(c) -> Cloud:
+    """An ``OrganizedCloud`` flattened row-major; a ``Cloud`` as it is."""
+    return c.flatten() if isinstance(c, OrganizedCloud) else c
 
 
 def _stride_cloud(cloud: Cloud, max_points: int) -> Cloud:

@@ -1,6 +1,8 @@
-"""The port's NN sweep (kernel B1's plain version) against the JAX
-package's XLA sweep and its Pallas kernel in interpret mode, and on the
-9 adversarial ``nn_check`` cases against float64 truth.
+"""The port's NN sweep (the plain version of kernels B1 and B2) against
+the JAX package's XLA sweep and its Pallas kernels in interpret mode
+(B2, the HBM-streaming kernel, forced at test size by lowering
+``MAX_VMEM_TARGET``), on the 9 adversarial ``nn_check`` cases against
+float64 truth, and the port's capacity routing against the JAX wrapper's.
 
 Tolerances: dist2 rtol 1e-5 (both re-score the winner exactly; only the
 f32 argmin scores' rounding differs), indices equal except at exact
@@ -17,7 +19,13 @@ from rspc_tpu.ops.nn import nearest_neighbors as j_nn
 from rspc_tpu.ops.nn_pallas import nearest_neighbors_pallas as j_nn_pallas
 from rspc_tpu_torch import cuda_build
 from rspc_tpu_torch.ops import nn_check as t_check
-from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_cuda, nn_sweep
+from rspc_tpu_torch.ops import nn as tnn
+from rspc_tpu_torch.ops.nn import (
+    nearest_neighbors,
+    nearest_neighbors_cuda,
+    nearest_neighbors_stream_cuda,
+    nn_sweep,
+)
 
 
 def _t(*arrays):
@@ -77,7 +85,48 @@ def test_plain_sweep_matches_pallas_interpret():
     _assert_same(src, tgt, d_g, i_g, d_w, i_w)
 
 
-def test_dispatch_takes_plain_version_on_cpu():
+def test_plain_sweep_matches_pallas_streaming_interpret(monkeypatch):
+    """The forced-streaming case of tests/test_nn_onchip.py: the JAX
+    package's B2 route (``_nn_kernel_hbm`` in interpret mode) against the
+    port's CPU route, and both against float64 brute force."""
+    import rspc_tpu.ops.nn_pallas as nnp
+
+    monkeypatch.setattr(nnp, "MAX_VMEM_TARGET", 2000)
+    rng = np.random.default_rng(7)
+    src = rng.uniform(-1, 1, (333, 3)).astype(np.float32)
+    tgt = rng.uniform(-1, 1, (6100, 3)).astype(np.float32)
+    sv = np.ones(333, bool)
+    sv[5] = False
+    tv = np.ones(6100, bool)
+    tv[1000:1500] = False
+    tv[-1] = False
+    d_w, i_w = (np.asarray(x) for x in nnp.nearest_neighbors_pallas(
+        *(jnp.asarray(a) for a in (src, sv, tgt, tv)), interpret=True))
+    d_g, i_g = (x.numpy() for x in nn_sweep(*_t(src, sv, tgt, tv)))
+    _assert_same(src, tgt, d_g, i_g, d_w, i_w)
+    np.testing.assert_allclose(d_g[sv], d_w[sv], rtol=1e-5, atol=1e-7)
+    full = ((src[:, None, :].astype(np.float64) - tgt[None].astype(np.float64)) ** 2).sum(-1)
+    full[:, ~tv] = np.inf
+    np.testing.assert_array_equal(i_g[sv], full.argmin(1)[sv])
+    assert np.isinf(d_g[~sv]).all()
+
+
+@pytest.mark.parametrize("m", [102_400, 1_843_200, 2_500_000, 2_500_001, 3_072_000])
+def test_routing_matches_jax(m):
+    import rspc_tpu.ops.nn_pallas as nnp
+
+    assert tnn.STREAM_TARGET == nnp.MAX_VMEM_TARGET
+    assert tnn.TGT_CHUNK == nnp.TGT_CHUNK
+    assert tnn.streams(m) == ((m + (-m) % nnp.TGT_CHUNK) > nnp.MAX_VMEM_TARGET)
+    # the north-star target stays on B1; the 10-frame incremental one streams
+    assert tnn.streams(m) == (m >= 2_500_000)
+
+
+@pytest.mark.parametrize("stream_target", [tnn.STREAM_TARGET, 10])
+def test_dispatch_takes_plain_version_on_cpu(monkeypatch, stream_target):
+    """CPU tensors take the plain sweep whichever kernel their capacity
+    would route to on the card."""
+    monkeypatch.setattr(tnn, "STREAM_TARGET", stream_target)
     rng = np.random.default_rng(2)
     s, t = rng.normal(size=(50, 3)).astype(np.float32), rng.normal(size=(80, 3)).astype(np.float32)
     sv, tv = np.ones(50, bool), np.ones(80, bool)
@@ -85,15 +134,16 @@ def test_dispatch_takes_plain_version_on_cpu():
     d_a, i_a = nn_sweep(*_t(s, sv, t, tv))
     d_b, i_b = nearest_neighbors(*_t(s, sv, t, tv))
     assert torch.equal(i_a, i_b) and torch.equal(d_a, d_b)
-    assert cuda_build.LAUNCHES["nn_sweep"] == 0
-    assert cuda_build.PLAIN_ON_CUDA["nn_sweep"] == 0
+    assert not any(cuda_build.LAUNCHES.values())
+    assert not any(cuda_build.PLAIN_ON_CUDA.values())
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
+@pytest.mark.parametrize("wrapper", [nearest_neighbors_cuda, nearest_neighbors_stream_cuda])
+def test_kernel_wrapper_refuses_cpu_tensors(wrapper):
     x = torch.zeros((4, 3))
     v = torch.ones(4, dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
-        nearest_neighbors_cuda(x, v, x, v)
+        wrapper(x, v, x, v)
 
 
 def test_measures_match_jax():
