@@ -10,16 +10,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. check the card (exit 1 without one) and print its name and power limit;
   2. build the CUDA kernels from ``rspc_tpu_torch/csrc`` (into
      ``rspc_tpu_torch/_build/``) and print the build seconds;
-  3. kernel B1 (NN sweep) against its plain PyTorch version on the card:
-     the 9 adversarial ``nn_check`` cases against float64 truth, and one
-     main-path shape (5,120 sources against a 102,400-capacity target);
+  3. the NN sweep on B1's route (``csrc/nn_sweep.cu``, ``ops/nn.py::plan``)
+     against its plain PyTorch version on the card: the 9 adversarial
+     ``nn_check`` cases against float64 truth, and the main-path shapes
+     (5,120 sources against a 102,400-capacity target; the anchor's
+     30,726 x 10,240), each held against the plain sweep and printed with
+     its launch plan, and the kernel's ``ptxas`` registers and spills;
   4. kernel B3 (Canny hysteresis) against its plain version, bit for bit,
      on the masks of 10 rendered 640x480 frames and on random masks;
-  5. kernel B2 (the NN sweep with the target split across blocks) against
-     the plain sweep: the 9 ``nn_check`` cases, the forced-streaming case
-     of tests/test_nn_onchip.py (333 x 6,100 with holes) against float64
+  5. the same kernel and plan on B2's route against the plain
+     sweep: the 9 ``nn_check`` cases, the forced-streaming case of
+     tests/test_nn_onchip.py (333 x 6,100 with holes) against float64
      brute force, and the incremental chain's last-pair shape (16,384
-     sources against a 3,072,000-capacity target, 2,764,800 live);
+     sources against a 3,072,000-capacity target, 2,764,800 live), with
+     its plan;
   6. the north-star workload: 10 synthetic 640x480 frames, yaw -0.08 rad
      per frame, rendered on the card, through
      ``NDTEdgeBasedRegistration(rads=-0.08, config=north_star_config())``:
@@ -32,10 +36,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      routes every sweep to B2: one warm-up and timed runs, a staged run
      (stage walls and host syncs), and one counted run that must launch
      B2 and no plain version on the card, with every pair converged; the
-     same registration with B1 serving it must agree per pair within
-     1e-4. Its error against ground truth is printed, not gated:
-     guess-free ICP drifts on a rotating sequence by design.
+     same registration on B1's route must agree per pair within 1e-4
+     (the kernel gives both routes the same winners bit for bit, so the
+     difference is expected to be exactly 0). Its error against ground
+     truth is printed, not gated: guess-free ICP drifts on a rotating
+     sequence by design.
 
+A kernel's time (``ms``) is the kernel's own (CUDA events around
+launches on inputs the wrapper packed once; for the NN sweep both
+passes); the NN entries also carry ``wrapper_ms``, the wrapper's time
+with its packing and re-score.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its FP32 operations (4
 FMA-class operations per valid source x valid target pair for the NN
@@ -136,10 +146,53 @@ def tie_ok(src, tgt, idx_a, idx_b, rtol=1e-4, atol=1e-5) -> bool:
     return bool((np.abs(da - db) <= atol + rtol * np.maximum(db, 1.0)).all())
 
 
+def plan_line(p, dev) -> str:
+    """The NN sweep's launch plan as one phrase."""
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.ops.nn import SRC_TILE
+
+    resident = cuda_build.nn_sweep_resident()
+    slots = torch.cuda.get_device_properties(dev).multi_processor_count * resident
+    return (f"plan: {p.tiles} tiles of {SRC_TILE} sources x {p.splits} splits = "
+            f"{p.tiles * p.splits} blocks on {slots} resident slots ({resident} per SM)")
+
+
+def nn_vs_plain(what, args, got, chunk):
+    """Hold the wrapper's ``got`` (dist2, idx) against the plain sweep on
+    ``args``: the same inf pattern, dist2 within ``NN_TOL``, and indices
+    equal except at exact ties. Returns the max |dist2| difference."""
+    from rspc_tpu_torch.ops.nn import nearest_neighbors
+
+    d_p, i_p = nearest_neighbors(*args, chunk=chunk)
+    d_k, i_k, d_p, i_p = (x.cpu().numpy() for x in (*got, d_p, i_p))
+    fin = np.isfinite(d_p)
+    if not (np.isfinite(d_k) == fin).all():
+        raise AssertionError(f"{what}: inf pattern differs from the plain sweep")
+    err = float(np.abs(d_k[fin] - d_p[fin]).max())
+    src, tgt = args[0].cpu().numpy(), args[2].cpu().numpy()
+    if err > NN_TOL or not tie_ok(src, tgt, i_k[fin], i_p[fin]):
+        raise AssertionError(f"{what}: max |dist2| diff {err:.3e} or indices differ")
+    return err
+
+
+def nn_kernel_only(args, p):
+    """The NN sweep's kernel alone (both passes, ``ops/nn.py::_launch``)
+    on ``args`` packed once by the wrappers' ``_pack``, on plan ``p``: a
+    closure for ``cuda_ms``. Bypasses the wrappers, so it counts no
+    launch."""
+    from rspc_tpu_torch.ops.nn import _launch, _pack
+
+    packed = _pack(*args)
+    return lambda: _launch(*packed, p)
+
+
 def phase_nn(dev):
     import torch
 
-    from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_cuda
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.ops.nn import card_plan, nearest_neighbors, nearest_neighbors_cuda
     from rspc_tpu_torch.ops.nn_check import adversarial_cases, run_nn_checks
 
     def on_card(s, sv, t, tv):
@@ -148,6 +201,7 @@ def phase_nn(dev):
         )
         return d2.cpu().numpy(), idx.cpu().numpy()
 
+    log("NN sweep " + cuda_build.ptxas_report("nn_sweep_pass1"))
     fails = run_nn_checks(on_card)
     if fails:
         raise AssertionError("B1 nn_check: " + "; ".join(fails))
@@ -161,21 +215,16 @@ def phase_nn(dev):
            + rng.normal(0, 0.01, (NN_SRC, 3))).astype(np.float32)
     sv = rng.random(NN_SRC) < 0.95
     args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
-    d_k, i_k = nearest_neighbors_cuda(*args)
-    d_p, i_p = nearest_neighbors(*args, chunk=4096)
-    d_k, i_k, d_p, i_p = (x.cpu().numpy() for x in (d_k, i_k, d_p, i_p))
-    fin = np.isfinite(d_p)
-    if not (np.isfinite(d_k) == fin).all():
-        raise AssertionError("B1: inf pattern differs from the plain sweep")
-    err = float(np.abs(d_k[fin] - d_p[fin]).max())
-    if err > NN_TOL or not tie_ok(src, tgt, i_k[fin], i_p[fin]):
-        raise AssertionError(f"B1 main shape: max |dist2| diff {err:.3e}")
-    ms = cuda_ms(lambda: nearest_neighbors_cuda(*args), 20)
+    err = nn_vs_plain("B1 main shape", args, nearest_neighbors_cuda(*args), 4096)
+    plan = card_plan(NN_SRC, dev)
+    ms = cuda_ms(nn_kernel_only(args, plan), 50)
+    wrap_ms = cuda_ms(lambda: nearest_neighbors_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: nearest_neighbors(*args, chunk=4096), 5)
     lib_ms = cuda_ms(lambda: torch.cdist(args[0], args[2]).min(dim=1), 5)
     bnd = nn_bound(*args)
-    log(f"B1 main shape {NN_SRC} x {NN_TGT_CAP} (live {NN_TGT_LIVE}): "
-        f"max |dist2 kernel - plain| {err:.3e}; kernel {ms:.3f} ms, "
+    log(f"B1 main shape {NN_SRC} x {NN_TGT_CAP} (live {NN_TGT_LIVE}), "
+        f"{plan_line(plan, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.4f} ms "
+        f"(wrapper with packing and re-score {wrap_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, torch.cdist+min {lib_ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
 
@@ -184,25 +233,31 @@ def phase_nn(dev):
     a_sv = torch.ones(9 * 3414, dtype=torch.bool, device=dev)
     a_tgt = torch.from_numpy(rng.uniform(-2, 2, (10240, 3)).astype(np.float32)).to(dev)
     a_tv = torch.ones(10240, dtype=torch.bool, device=dev)
-    a_ms = cuda_ms(lambda: nearest_neighbors_cuda(a_src, a_sv, a_tgt, a_tv), 20)
+    a_args = (a_src, a_sv, a_tgt, a_tv)
+    a_err = nn_vs_plain("B1 anchor shape", a_args, nearest_neighbors_cuda(*a_args), 2048)
+    a_plan = card_plan(9 * 3414, dev)
+    a_ms = cuda_ms(nn_kernel_only(a_args, a_plan), 50)
+    a_wrap = cuda_ms(lambda: nearest_neighbors_cuda(*a_args), 20)
     a_plain = cuda_ms(lambda: nearest_neighbors(a_src, a_sv, a_tgt, a_tv, 2048), 5)
     a_lib = cuda_ms(lambda: torch.cdist(a_src, a_tgt).min(dim=1), 5)
     a_bnd = nn_bound(a_src, a_sv, a_tgt, a_tv)
-    log(f"B1 anchor shape {9 * 3414} x 10240: kernel {a_ms:.3f} ms, plain {a_plain:.3f} ms, "
+    log(f"B1 anchor shape {9 * 3414} x 10240, {plan_line(a_plan, dev)}: "
+        f"max |dist2 kernel - plain| {a_err:.3e}; "
+        f"kernel {a_ms:.4f} ms (wrapper {a_wrap:.3f} ms), plain {a_plain:.3f} ms, "
         f"torch.cdist+min {a_lib:.3f} ms, bound {a_bnd['bound_ms']:.4f} ms "
         f"({a_bnd['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": lib_ms}
+    return {"max_abs_err": max(err, a_err), "ms": ms, "wrapper_ms": wrap_ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": lib_ms}
 
 
 def phase_nn_stream(dev):
     import torch
 
+    from rspc_tpu_torch import cuda_build
     from rspc_tpu_torch.ops.nn import (
+        card_plan,
         nearest_neighbors,
-        nearest_neighbors_cuda,
         nearest_neighbors_stream_cuda,
-        split_count,
     )
     from rspc_tpu_torch.ops.nn_check import adversarial_cases, run_nn_checks
 
@@ -212,6 +267,7 @@ def phase_nn_stream(dev):
         )
         return d2.cpu().numpy(), idx.cpu().numpy()
 
+    log("NN sweep " + cuda_build.ptxas_report("nn_sweep_pass1"))
     fails = run_nn_checks(on_card)
     if fails:
         raise AssertionError("B2 nn_check: " + "; ".join(fails))
@@ -244,28 +300,20 @@ def phase_nn_stream(dev):
            + rng.normal(0, 0.01, (INC_SRC, 3))).astype(np.float32)
     sv = rng.random(INC_SRC) < 0.95
     args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
-    d_k, i_k = nearest_neighbors_stream_cuda(*args)
-    d_p, i_p = nearest_neighbors(*args, chunk=4096)
-    d_k, i_k, d_p, i_p = (x.cpu().numpy() for x in (d_k, i_k, d_p, i_p))
-    fin = np.isfinite(d_p)
-    if not (np.isfinite(d_k) == fin).all():
-        raise AssertionError("B2: inf pattern differs from the plain sweep")
-    err = float(np.abs(d_k[fin] - d_p[fin]).max())
-    if err > NN_TOL or not tie_ok(src, tgt, i_k[fin], i_p[fin]):
-        raise AssertionError(f"B2 last-pair shape: max |dist2| diff {err:.3e}")
-    splits = split_count(INC_SRC)
-    ms = cuda_ms(lambda: nearest_neighbors_stream_cuda(*args), 10)
+    err = nn_vs_plain("B2 last-pair shape", args, nearest_neighbors_stream_cuda(*args), 4096)
+    plan = card_plan(INC_SRC, dev)
+    ms = cuda_ms(nn_kernel_only(args, plan), 10)
+    wrap_ms = cuda_ms(lambda: nearest_neighbors_stream_cuda(*args), 10)
     plain_ms = cuda_ms(lambda: nearest_neighbors(*args, chunk=4096), 1)
-    b1_ms = cuda_ms(lambda: nearest_neighbors_cuda(*args), 3)
     bnd = nn_bound(*args)
     log(f"B2 last-pair shape {INC_SRC} x {INC_TGT_CAP} (live {INC_TGT_LIVE}), "
-        f"{splits} splits: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, B1 {b1_ms:.3f} ms, "
+        f"{plan_line(plan, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.3f} ms "
+        f"(wrapper {wrap_ms:.3f} ms), plain {plain_ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
         f"no library call (a {INC_SRC} x {INC_TGT_LIVE} distance matrix is "
         f"{INC_SRC * INC_TGT_LIVE * 4 / 1e9:.0f} GB)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
+            **bnd, "library_ms": None}
 
 
 def phase_hysteresis(dev, clouds):
@@ -332,8 +380,11 @@ def device_profile(fn) -> str:
         end = max(end, stop)
         per_name[e.name] = per_name.get(e.name, 0.0) + (stop - start)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
+    sweep = [e for e in dev_events if "nn_sweep_pass" in e.name]
+    sweep_ms = sum(e.time_range.end - e.time_range.start for e in sweep) / 1e3
     return (f"device busy {busy / 1e3:.3f} ms of a {wall * 1e3:.1f} ms profiled run "
             f"({100 * busy / 1e3 / (wall * 1e3):.1f}%), {len(dev_events)} device events; "
+            f"NN sweep (both passes) {sweep_ms:.3f} ms over {len(sweep)} kernels; "
             "largest: " + ", ".join(f"{n[:40]} {t / 1e3:.3f} ms" for n, t in top))
 
 
@@ -496,7 +547,7 @@ def phase_incremental(dev, seq, clouds):
     if staged_diff > INC_PAIR_TOL:
         raise AssertionError(f"staged run differs from the scheme by {staged_diff:.3e}")
 
-    # the same registration with B1 serving every sweep
+    # the same registration with B1's route serving every sweep
     saved = nn.STREAM_TARGET
     nn.STREAM_TARGET = 10 * cap
     try:
@@ -571,7 +622,7 @@ def main() -> int:
          "replaces": "rspc_tpu/ops/nn_pallas.py:48",
          "launches": launches["nn_sweep"], **nn},
         {"name": "nn_sweep_split", "route": "cuda",
-         "source": "rspc_tpu_torch/csrc/nn_sweep_split.cu",
+         "source": "rspc_tpu_torch/csrc/nn_sweep.cu",
          "replaces": "rspc_tpu/ops/nn_pallas.py:112",
          "launches": inc_launches["nn_sweep_split"], **nn_stream},
         {"name": "hysteresis", "route": "cuda",

@@ -39,11 +39,11 @@ PLAIN_ON_CUDA = {"nn_sweep": 0, "nn_sweep_split": 0, "hysteresis": 0}
 # (cudaError_t).
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # src4, tgt4, live_hi, n, best_score, best_idx, stream
-    "rspc_nn_sweep": (_VP, _VP, _VP, _I, _VP, _VP, _VP),
     # src4, tgt4, live_hi, n, splits, part_score, part_idx, best_score,
     # best_idx, stream
-    "rspc_nn_sweep_split": (_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP),
+    "rspc_nn_sweep": (_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP),
+    # resident blocks of the NN sweep's pass 1 per SM -> int*
+    "rspc_nn_sweep_occupancy": (_VP,),
     # strong, weak, out, frames, h, w, stream
     "rspc_hysteresis": (_VP, _VP, _VP, _I, _I, _I, _VP),
     # max dynamic shared memory per block (bytes) -> int*
@@ -93,7 +93,9 @@ def _run(procs, what: str) -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` (if not already built for these sources)
-    and return the shared library's path."""
+    and return the shared library's path. ``ptxas -v``'s report (each
+    kernel's registers, shared memory and spills) is kept beside the
+    library (:func:`ptxas_report`); ``verbose`` prints the build's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"librspc_kernels_{source_hash()}.so"
     if lib.exists():
@@ -103,10 +105,8 @@ def build(verbose: bool = False) -> Path:
     procs, objs = [], []
     for src in _sources():
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas=-v", "-c",
                "-Xcompiler", "-fPIC", "-o", str(obj), str(src)]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         objs.append(obj)
@@ -119,8 +119,25 @@ def build(verbose: bool = False) -> Path:
         obj.unlink()
     if verbose and log:
         print(log, flush=True)
+    lib.with_suffix(".ptxas.txt").write_text(log)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_report(kernel: str) -> str:
+    """``ptxas -v``'s registers and spills of the kernel whose mangled
+    name contains ``kernel``, from the build's saved report."""
+    log = build().with_suffix(".ptxas.txt").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and kernel in line:
+            rest = []
+            for follow in log[i + 1:]:
+                if "Compiling entry function" in follow:
+                    break
+                if "spill" in follow or "registers" in follow:
+                    rest.append(follow.split(":", 1)[-1].strip())
+            return f"{kernel}: " + "; ".join(rest)
+    raise RuntimeError(f"ptxas report: no entry function matching {kernel!r}")
 
 
 @functools.lru_cache(maxsize=1)
@@ -140,6 +157,18 @@ def smem_optin_limit() -> int:
     v = ctypes.c_int(0)
     check(library().rspc_hysteresis_smem_limit(ctypes.addressof(v)),
           "rspc_hysteresis_smem_limit")
+    return v.value
+
+
+@functools.lru_cache(maxsize=None)
+def nn_sweep_resident() -> int:
+    """Blocks of the NN sweep's pass 1 resident on one SM (CUDA's
+    occupancy calculator, for the launch plan of ``ops/nn.py``)."""
+    v = ctypes.c_int(0)
+    check(library().rspc_nn_sweep_occupancy(ctypes.addressof(v)),
+          "rspc_nn_sweep_occupancy")
+    if v.value < 1:
+        raise RuntimeError("rspc_nn_sweep_occupancy: the NN sweep cannot run on this card")
     return v.value
 
 

@@ -11,21 +11,28 @@ re-score each winner exactly as ``|s - t_win|^2``.
 
   * :func:`nearest_neighbors` -- the plain PyTorch chunked sweep (lowest
     index within a chunk, strict ``<`` across chunks);
-  * :func:`nearest_neighbors_cuda` -- kernel B1 (``csrc/nn_sweep.cu``);
-  * :func:`nearest_neighbors_stream_cuda` -- kernel B2
-    (``csrc/nn_sweep_split.cu``), the live target split across blocks;
-  * :func:`nn_sweep` -- the dispatch: CUDA tensors launch kernel B2 when
+  * :func:`nearest_neighbors_cuda` and :func:`nearest_neighbors_stream_cuda`
+    -- the routes of the TPU kernels B1 (``_nn_kernel``) and B2
+    (``_nn_kernel_hbm``): one CUDA kernel (``csrc/nn_sweep.cu``), the
+    live target split across a grid that fills the card, launched by
+    :func:`_sweep_cuda` on :func:`plan`; the routes share the kernel and
+    the plan, and count their launches apart;
+  * :func:`nn_sweep` -- the dispatch: CUDA tensors take B2's route when
     the static target capacity, padded up to a multiple of
     ``TGT_CHUNK``, exceeds ``STREAM_TARGET`` (:func:`streams`, the JAX
-    wrapper's ``MAX_VMEM_TARGET`` rule), else kernel B1; CPU tensors take
-    the plain sweep. There is no fallback between them.
+    wrapper's ``MAX_VMEM_TARGET`` rule), else B1's; CPU tensors take the
+    plain sweep. There is no fallback between them.
 
-Indices of a kernel and the plain sweep may differ only at exact
-distance ties (``ops/nn_check.py``'s contract); B1 and B2 agree bit for
+Indices of the kernel and the plain sweep may differ only at exact
+distance ties (``ops/nn_check.py``'s contract); the kernel gives the
+same result bit for bit on every plan, so the two routes agree bit for
 bit.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,19 +43,26 @@ from rspc_tpu_torch import cuda_build
 PENALTY = 1e30
 PENALTY_WINS = 1e29
 
-# Routing between the two kernels by static target capacity, the
+# Routing between the two routes by static target capacity, the
 # counterpart of rspc_tpu/ops/nn_pallas.py's MAX_VMEM_TARGET and
 # TGT_CHUNK: a capacity that, padded up to a multiple of TGT_CHUNK,
-# exceeds STREAM_TARGET takes kernel B2. Shapes alone decide, so routing
+# exceeds STREAM_TARGET takes B2's route. Shapes alone decide, so routing
 # never syncs with the host.
 STREAM_TARGET = 2_500_000
 TGT_CHUNK = 1024
 
-# kernel B2's sources per block (csrc/nn_sweep_split.cu: 128 threads x 2
-# sources), the blocks per SM its split count aims at, and the split cap
-SPLIT_SRC_TILE = 256
-SPLIT_BLOCKS_PER_SM = 8
-MAX_SPLITS = 64
+# the kernel's sources per block (csrc/nn_sweep.cu kSrcTile: 128 threads
+# x 6 sources), and the split cap (it bounds the [splits, n] scratch)
+SRC_TILE = 768
+MAX_SPLITS = 1024
+
+
+class SweepPlan(NamedTuple):
+    """A launch of the NN sweep: ``tiles`` source tiles of ``SRC_TILE``
+    x ``splits`` target splits, one block of pass 1 each."""
+
+    tiles: int
+    splits: int
 
 
 def _recentre(src_xyz, tgt_xyz, tgt_valid):
@@ -117,10 +131,76 @@ def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid):
     return src4, tgt4, live_hi, best_score, best_idx
 
 
+def plan(n: int, sms: int, resident: int) -> SweepPlan:
+    """The NN sweep's launch plan for ``n`` sources on a card of ``sms``
+    SMs that holds ``resident`` blocks of the sweep per SM: as many target
+    splits as the ``sms * resident`` resident slots hold with one block
+    per (source tile, split), at least 1 and at most ``MAX_SPLITS``. So
+    the grid is one wave that leaves fewer than ``tiles`` slots idle
+    (where there are more tiles than slots, one split runs in waves).
+    Static: the source count and the card alone decide (never the live
+    prefix, which only the device knows)."""
+    tiles = -(-n // SRC_TILE)
+    return SweepPlan(tiles, max(1, min(MAX_SPLITS, sms * resident // tiles)))
+
+
+def share_bounds(live: int, splits: int) -> list[tuple[int, int]]:
+    """The kernel's target share of each split, ``[(lo, hi), ...]``:
+    even, contiguous and ascending, covering ``[0, live)``."""
+    share = -(-live // splits)
+    out = []
+    for split in range(splits):
+        lo = min(live, split * share)
+        out.append((lo, min(live, lo + share)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _card_slots(device_index: int) -> tuple[int, int]:
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms, cuda_build.nn_sweep_resident()
+
+
+def card_plan(n: int, device) -> SweepPlan:
+    """:func:`plan` for this card (its SM count and the kernel's resident
+    blocks per SM, queried once)."""
+    return plan(n, *_card_slots(torch.device(device).index or 0))
+
+
+def _launch(src4, tgt4, live_hi, best_score, best_idx, p: SweepPlan) -> None:
+    """The kernel of ``csrc/nn_sweep.cu`` (both passes) on :func:`_pack`'s
+    outputs and plan ``p``, with its ``[splits, n]`` scratch allocated
+    here. Counts no launch: the wrappers do."""
+    n = src4.shape[0]
+    part_score = torch.empty((p.splits, n), dtype=torch.float32, device=src4.device)
+    part_idx = torch.empty((p.splits, n), dtype=torch.int32, device=src4.device)
+    code = cuda_build.library().rspc_nn_sweep(
+        src4.data_ptr(), tgt4.data_ptr(), live_hi.data_ptr(), n, p.splits,
+        part_score.data_ptr(), part_idx.data_ptr(), best_score.data_ptr(),
+        best_idx.data_ptr(), cuda_build.stream_of(src4),
+    )
+    cuda_build.check(code, "rspc_nn_sweep")
+
+
+def _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str):
+    """Both routes' launch: :func:`_pack`, :func:`_launch` on
+    :func:`card_plan`, then :func:`_rescore` with the ``< 1e29`` winner
+    check. ``route`` names the launch count."""
+    packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid)
+    n = packed[0].shape[0]
+    if n:
+        _launch(*packed, card_plan(n, packed[0].device))
+        cuda_build.LAUNCHES[route] += 1
+    best_score, best_idx = packed[3:]
+    return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score,
+                    best_idx, best_score < PENALTY_WINS)
+
+
 def nearest_neighbors_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid):
-    """Kernel B1 (``csrc/nn_sweep.cu``), replacing the TPU kernel
-    ``rspc_tpu/ops/nn_pallas.py::_nn_kernel`` with its wrapper's
-    pre- and post-processing kept as they were.
+    """The route of TPU kernel B1, ``rspc_tpu/ops/nn_pallas.py::_nn_kernel``
+    (targets up to ``STREAM_TARGET``): the kernel of ``csrc/nn_sweep.cu``
+    with the TPU wrapper's pre- and post-processing kept as they were, on
+    :func:`card_plan`.
 
     Pre (:func:`_pack`): recentre on the valid-target centroid; pack the
     target as (x, y, z, |t|^2 + penalty) with the 1e30 penalty on invalid
@@ -131,78 +211,30 @@ def nearest_neighbors_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid):
     below 1e29 (only penalised rows) or a source with no valid target
     reports inf.
 
-    What bounds it on the card: FP32 instruction throughput, 4 FMA-class
-    operations per (source, live target) pair, one thread per source with
-    the target staged through shared memory (see the kernel's header)."""
-    src4, tgt4, live_hi, best_score, best_idx = _pack(
-        src_xyz, src_valid, tgt_xyz, tgt_valid)
-    n = src4.shape[0]
-    if n:
-        code = cuda_build.library().rspc_nn_sweep(
-            src4.data_ptr(), tgt4.data_ptr(), live_hi.data_ptr(), n,
-            best_score.data_ptr(), best_idx.data_ptr(),
-            cuda_build.stream_of(src4),
-        )
-        cuda_build.check(code, "rspc_nn_sweep")
-        cuda_build.LAUNCHES["nn_sweep"] += 1
-    return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score,
-                    best_idx, best_score < PENALTY_WINS)
-
-
-def split_count(n: int) -> int:
-    """Target splits of kernel B2 for ``n`` sources: enough (source tile,
-    split) blocks for ``SPLIT_BLOCKS_PER_SM`` per SM, at most
-    ``MAX_SPLITS``. Static: the source count and the card alone decide."""
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    tiles = -(-n // SPLIT_SRC_TILE)
-    return max(1, min(MAX_SPLITS, -(-SPLIT_BLOCKS_PER_SM * sms // tiles)))
+    What bounds it on the card: FP32 issue, 4 FMA-class operations per
+    (source, live target) pair plus the running minimum (see the
+    kernel's header)."""
+    return _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, "nn_sweep")
 
 
 def nearest_neighbors_stream_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid):
-    """Kernel B2 (``csrc/nn_sweep_split.cu``), replacing the TPU kernel
-    ``rspc_tpu/ops/nn_pallas.py::_nn_kernel_hbm`` (the route for targets
-    above ``STREAM_TARGET``), with B1's wrapper contract bit for bit:
-    the same :func:`_pack` pre-processing, the same ``< 1e29`` winner
-    check and exact re-score, inf for an invalid source or an empty
-    target.
-
-    Pass 1 runs on a grid of (source tiles x :func:`split_count` target
-    splits); each block sweeps its even share of the live prefix and
-    writes a partial (score, index) into a ``[splits, n]`` scratch
-    allocated here. Pass 2 takes per source the lexicographic minimum
-    over splits (smaller score, then the lower split), which keeps the
-    plain sweep's lowest-index tie rule. Bounded, like B1, by FP32
-    instruction throughput (4 FMA-class operations per pair)."""
-    src4, tgt4, live_hi, best_score, best_idx = _pack(
-        src_xyz, src_valid, tgt_xyz, tgt_valid)
-    n = src4.shape[0]
-    if n:
-        splits = split_count(n)
-        part_score = torch.empty((splits, n), dtype=torch.float32, device=src4.device)
-        part_idx = torch.empty((splits, n), dtype=torch.int32, device=src4.device)
-        code = cuda_build.library().rspc_nn_sweep_split(
-            src4.data_ptr(), tgt4.data_ptr(), live_hi.data_ptr(), n, splits,
-            part_score.data_ptr(), part_idx.data_ptr(),
-            best_score.data_ptr(), best_idx.data_ptr(),
-            cuda_build.stream_of(src4),
-        )
-        cuda_build.check(code, "rspc_nn_sweep_split")
-        cuda_build.LAUNCHES["nn_sweep_split"] += 1
-    return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score,
-                    best_idx, best_score < PENALTY_WINS)
+    """The route of TPU kernel B2, ``rspc_tpu/ops/nn_pallas.py::_nn_kernel_hbm``
+    (targets above ``STREAM_TARGET``): the same kernel, plan and contract
+    as :func:`nearest_neighbors_cuda`, counted apart."""
+    return _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, "nn_sweep_split")
 
 
 def streams(m: int) -> bool:
-    """True when a target of static capacity ``m`` takes kernel B2: its
+    """True when a target of static capacity ``m`` takes B2's route: its
     capacity padded up to a multiple of ``TGT_CHUNK`` exceeds
     ``STREAM_TARGET`` (read at call time, so a caller may move it)."""
     return m + (-m) % TGT_CHUNK > STREAM_TARGET
 
 
 def nn_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048):
-    """Device dispatch: for CUDA tensors kernel B2 where :func:`streams`
-    holds for the target's capacity, else kernel B1; the plain sweep for
-    CPU tensors. ``chunk`` only shapes the plain sweep's tiles."""
+    """Device dispatch: for CUDA tensors B2's route where :func:`streams`
+    holds for the target's capacity, else B1's; the plain sweep for CPU
+    tensors. ``chunk`` only shapes the plain sweep's tiles."""
     if src_xyz.is_cuda:
         if streams(tgt_xyz.shape[0]):
             return nearest_neighbors_stream_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid)

@@ -113,6 +113,61 @@ def test_split_kernel_forced_streaming_case(dev):
     assert np.isinf(d2[~sv]).all()
 
 
+def _sweep_on(args, splits):
+    """B1's wrapper with its plan replaced by one of ``splits`` target
+    splits."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnn, "card_plan",
+                   lambda n, _: tnn.SweepPlan(-(-n // tnn.SRC_TILE), splits))
+        return nearest_neighbors_cuda(*args)
+
+
+@pytest.mark.parametrize("n", [1000, 5000])
+def test_nn_sweep_plan_independence(dev, n):
+    """One input under splits 1, 2, 17, the cap and the default plan
+    (the cap's grid outnumbers the resident slots and runs in waves)
+    gives the same dist2 and idx bit for bit."""
+    rng = np.random.default_rng(n)
+    m = 20_000
+    tgt = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
+    tv = rng.random(m) < 0.8
+    tv[15_000:] = False
+    src = (tgt[rng.integers(0, 15_000, n)] + rng.normal(0, 0.01, (n, 3))).astype(np.float32)
+    sv = rng.random(n) < 0.9
+    args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
+    d_ref, i_ref = _sweep_on(args, tnn.card_plan(n, dev).splits)
+    for splits in (1, 2, 5, 17, tnn.MAX_SPLITS):
+        d, i = _sweep_on(args, splits)
+        assert torch.equal(d, d_ref) and torch.equal(i, i_ref), splits
+    d_p, _ = nearest_neighbors(*args)
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d_ref), fin)
+    torch.testing.assert_close(d_ref[fin], d_p[fin], rtol=1e-5, atol=1e-12)
+
+
+def test_nn_sweep_exact_ties_across_shares(dev):
+    """Duplicates of every source's nearest target sit in one run, across
+    a run boundary and in different splits (17 splits of 4,096 targets:
+    shares of 241, so 240 and 241 straddle the first share boundary);
+    the lowest index wins on every plan and on both routes."""
+    rng = np.random.default_rng(5)
+    m = 4096
+    tgt = rng.uniform(5, 6, (m, 3)).astype(np.float32)
+    p = np.array([0.1, 0.2, 0.3], np.float32)
+    dups = [240, 241, 255, 256, 700, 2000, 4095]
+    tgt[dups] = p
+    src = (p + rng.uniform(-0.01, 0.01, (700, 3))).astype(np.float32)
+    sv = np.ones(700, bool)
+    tv = np.ones(m, bool)
+    args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
+    assert tnn.share_bounds(m, 17)[1][0] == 241
+    results = [_sweep_on(args, s) for s in (1, 2, 17, 64)]
+    results += [nearest_neighbors_cuda(*args), nearest_neighbors_stream_cuda(*args)]
+    for d, i in results:
+        assert (i == dups[0]).all()
+        assert torch.equal(d, results[0][0])
+
+
 def test_icp_fitness_sweep_takes_the_routed_kernel(dev, monkeypatch):
     """Every ICP sweep, the fitness sweep after the loop too, goes
     through the capacity routing: B2 once the target streams."""

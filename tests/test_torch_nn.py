@@ -122,6 +122,46 @@ def test_routing_matches_jax(m):
     assert tnn.streams(m) == (m >= 2_500_000)
 
 
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 5120, 16_384, 30_726])
+@pytest.mark.parametrize("sms,resident", [(132, 8), (132, 3), (114, 7), (132, 6), (1, 1)])
+def test_plan_covers_every_source_once(n, sms, resident):
+    """The NN sweep's launch plan: every source in exactly one tile, the
+    split count within its cap, and one block per (tile, split) item in
+    one wave of the resident slots that leaves fewer than ``tiles`` of
+    them idle (one split, in waves, where the tiles outnumber the slots);
+    the kernel's block-to-item map visits every item once."""
+    p = tnn.plan(n, sms, resident)
+    slots = sms * resident
+    tiles = [range(t * tnn.SRC_TILE, min(n, (t + 1) * tnn.SRC_TILE)) for t in range(p.tiles)]
+    assert sorted(i for r in tiles for i in r) == list(range(n))
+    assert all(len(r) > 0 for r in tiles)
+    assert 1 <= p.splits <= tnn.MAX_SPLITS
+    blocks = p.tiles * p.splits
+    if p.tiles <= slots:
+        assert blocks <= slots
+        if p.splits < tnn.MAX_SPLITS:
+            assert blocks > slots - p.tiles
+    else:
+        assert p.splits == 1
+    # the kernel's map: block b takes tile b % tiles and split b // tiles
+    items = {(b % p.tiles, b // p.tiles) for b in range(blocks)}
+    assert items == {(t, s) for t in range(p.tiles) for s in range(p.splits)}
+
+
+@pytest.mark.parametrize("live", [1, 307_200, 2_764_800, 3_072_000])
+@pytest.mark.parametrize("splits", [1, 2, 17, 66, 211, 1024])
+def test_shares_cover_live_prefix_once(live, splits):
+    """The kernel's target shares (mirrored by ``share_bounds``): one per
+    split, contiguous, ascending with the split, covering ``[0, live)``
+    exactly once and even to within one share."""
+    b = tnn.share_bounds(live, splits)
+    assert len(b) == splits and b[0][0] == 0 and b[-1][1] == live
+    assert all(lo <= hi for lo, hi in b)
+    assert all(b[k][1] == b[k + 1][0] for k in range(splits - 1))
+    assert sum(hi - lo for lo, hi in b) == live
+    assert max(hi - lo for lo, hi in b) == -(-live // splits)
+
+
 @pytest.mark.parametrize("stream_target", [tnn.STREAM_TARGET, 10])
 def test_dispatch_takes_plain_version_on_cpu(monkeypatch, stream_target):
     """CPU tensors take the plain sweep whichever kernel their capacity
