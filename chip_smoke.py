@@ -16,8 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (5,120 sources against a 102,400-capacity target; the anchor's
      30,726 x 10,240), each held against the plain sweep and printed with
      its launch plan, and the kernel's ``ptxas`` registers and spills;
-  4. kernel B3 (Canny hysteresis) against its plain version, bit for bit,
-     on the masks of 10 rendered 640x480 frames and on random masks;
+  4. kernel B3 (Canny hysteresis, ``csrc/hysteresis.cu``) against its
+     plain version, bit for bit, on the masks of 10 rendered 640x480
+     frames, on random masks, on every ``ops/hysteresis_check.py`` case at
+     480x640, on the masks of 10 rendered 1280x720 frames and on a
+     10 x 480 x 640 percolation batch (p_weak 0.6), each timed;
   5. the same kernel and plan on B2's route against the plain
      sweep: the 9 ``nn_check`` cases, the forced-streaming case of
      tests/test_nn_onchip.py (333 x 6,100 with holes) against float64
@@ -45,7 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
 passes); the NN entries also carry ``wrapper_ms``, the wrapper's time
-with its packing and re-score.
+with its packing and re-score. B3's time is that of whole calls (its
+three passes) queued behind a sleep kernel (``device_ms``), so that it
+is the card's time and not the host's rate of launching them.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its FP32 operations (4
 FMA-class operations per valid source x valid target pair for the NN
@@ -82,6 +87,8 @@ INC_PAIR_TOL = 1e-4  # per-pair transforms, B2-routed vs B1-routed run
 HBM_BYTES_PER_S = 3.35e12
 FP32_FMA_PER_S = 33.5e12
 NN_OPS_PER_PAIR = 4  # 3 for s.t, 1 for |t|^2 + pen - 2 s.t
+# kernel B3's passes, by the names of their kernels (csrc/hysteresis.cu)
+B3_PASSES = ("hysteresis_local", "hysteresis_merge", "hysteresis_output")
 
 
 def log(*a):
@@ -111,6 +118,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the card with the calls queued
+    ahead: a sleep kernel holds the card while the host enqueues all
+    ``reps`` calls, which then run back to back. The sleep grows until it
+    outlasts the enqueueing, so the host's launch rate never shows."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        e0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
 
 
 def nbytes(*tensors) -> int:
@@ -316,43 +349,93 @@ def phase_nn_stream(dev):
             **bnd, "library_ms": None}
 
 
-def phase_hysteresis(dev, clouds):
+def edge_masks(clouds):
+    """(strong, weak) bool ``[B, H, W]`` of the RGB Canny of ``clouds``:
+    what the north star hands kernel B3."""
     import torch
 
     from rspc_tpu_torch.config import EdgeConfig
-    from rspc_tpu_torch.ops.canny import _hysteresis_plain, hysteresis_cuda
     from rspc_tpu_torch.ops.edges import _frame_inputs
 
-    cfg = EdgeConfig()
-    masks = [_frame_inputs(c, cfg)[2:] for c in clouds]
-    strong = torch.stack([m[0] for m in masks]).contiguous()
-    weak = torch.stack([m[1] for m in masks]).contiguous()
-    got = hysteresis_cuda(strong, weak)
-    want = torch.stack([_hysteresis_plain(s, w) for s, w in zip(strong, weak)])
-    bad = int((got != want).sum())
-    if bad:
-        raise AssertionError(f"B3: {bad} pixels differ on the rendered frames")
+    masks = [_frame_inputs(c, EdgeConfig())[2:] for c in clouds]
+    return (torch.stack([m[0] for m in masks]).contiguous(),
+            torch.stack([m[1] for m in masks]).contiguous())
+
+
+def percolation_batch(dev):
+    """10 x 480 x 640 random masks above the 8-connected percolation
+    threshold (p_weak 0.6): one component spans each frame."""
+    import torch
+
+    from rspc_tpu_torch.ops.hysteresis_check import random_masks
+
+    s, w = random_masks(np.random.default_rng(11), (N_FRAMES, HEIGHT, WIDTH), 0.6, 0.002)
+    return torch.from_numpy(s).to(dev), torch.from_numpy(w).to(dev)
+
+
+def render(dev, width, height):
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
+    from rspc_tpu_torch.ops.deproject import Intrinsics
+
+    seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=YAW_STEP,
+                            intr=Intrinsics.simple(width, height))
+    return seq, seq.clouds(device=dev)
+
+
+def phase_hysteresis(dev, clouds):
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.ops.canny import PASSES, TILE, _hysteresis_plain, hysteresis_cuda, plan
+    from rspc_tpu_torch.ops.hysteresis_check import hysteresis_cases
+
+    for name in B3_PASSES:
+        log("B3 " + cuda_build.ptxas_report(name))
+
+    def vs_plain(what, strong, weak):
+        got = hysteresis_cuda(strong, weak)
+        want = torch.stack([_hysteresis_plain(s, w) for s, w in zip(strong, weak)])
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"B3: {bad} pixels differ on {what}")
+        return int(want.sum())
+
+    strong, weak = edge_masks(clouds)
+    lit = vs_plain("the rendered frames", strong, weak)
     g = torch.Generator(device="cpu").manual_seed(7)
     rweak = (torch.rand((4, HEIGHT, WIDTH), generator=g) < 0.3).to(dev)
     rstrong = (rweak & (torch.rand((4, HEIGHT, WIDTH), generator=g) < 0.02).to(dev))
-    got_r = hysteresis_cuda(rstrong.contiguous(), rweak.contiguous())
-    want_r = torch.stack([_hysteresis_plain(s, w) for s, w in zip(rstrong, rweak)])
-    bad_r = int((got_r != want_r).sum())
-    if bad_r:
-        raise AssertionError(f"B3: {bad_r} pixels differ on random masks")
-    ms = cuda_ms(lambda: hysteresis_cuda(strong, weak), 20)
+    vs_plain("random masks", rstrong.contiguous(), rweak.contiguous())
+    cases = hysteresis_cases(HEIGHT, WIDTH)
+    for name, s, w in cases:
+        vs_plain(f"hysteresis_check case {name}",
+                 torch.from_numpy(s).to(dev), torch.from_numpy(w).to(dev))
+    _, hd = render(dev, 1280, 720)
+    hd_strong, hd_weak = edge_masks(hd)
+    del hd
+    vs_plain("the rendered 1280x720 frames", hd_strong, hd_weak)
+    p_strong, p_weak = percolation_batch(dev)
+    vs_plain("the percolation batch", p_strong, p_weak)
+
+    ms = device_ms(lambda: hysteresis_cuda(strong, weak), 50)
+    hd_ms = device_ms(lambda: hysteresis_cuda(hd_strong, hd_weak), 50)
+    perc_ms = device_ms(lambda: hysteresis_cuda(p_strong, p_weak), 50)
     plain_ms = cuda_ms(
         lambda: [_hysteresis_plain(s, w) for s, w in zip(strong, weak)], 3
     )
     # memory floor: both masks read once, the result written once (the
-    # fixpoint's rounds are not counted)
-    bnd_ms, bnd_by = bound(nbytes(strong, weak, got), 0)
-    log(f"B3 {len(clouds)} x {HEIGHT}x{WIDTH}: bit-exact vs plain "
-        f"({int(want.sum())} edge pixels; random masks too); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bnd_ms:.4f} ms ({bnd_by}); "
+    # labels are the kernel's own traffic, not the function's)
+    bnd_ms, bnd_by = bound(3 * strong.numel(), 0)
+    p = plan(*strong.shape)
+    log(f"B3 {len(clouds)} x {HEIGHT}x{WIDTH}, {PASSES} passes over {p.tiles} tiles of "
+        f"{TILE}x{TILE}: bit-exact vs plain ({lit} edge pixels; random masks, "
+        f"{len(cases)} hysteresis_check cases, 10 x 720x1280 and the percolation batch "
+        f"too); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd_ms:.5f} ms "
+        f"({bnd_by}); 10 x 720x1280 {hd_ms:.4f} ms; percolation batch {perc_ms:.4f} ms; "
         f"no library call computes hysteresis")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd_ms,
-            "bound_by": bnd_by, "library_ms": None}
+            "bound_by": bnd_by, "library_ms": None, "passes": PASSES,
+            "tile": f"{TILE}x{TILE}", "ms_720x1280": hd_ms, "ms_percolation": perc_ms}
 
 
 def device_profile(fn) -> str:
@@ -382,9 +465,16 @@ def device_profile(fn) -> str:
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
     sweep = [e for e in dev_events if "nn_sweep_pass" in e.name]
     sweep_ms = sum(e.time_range.end - e.time_range.start for e in sweep) / 1e3
+    b3 = {}
+    for e in dev_events:
+        for name in B3_PASSES:
+            if name in e.name:
+                b3[name] = b3.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    b3_line = ", ".join(f"{n} {b3[n]:.4f} ms" for n in B3_PASSES if n in b3) or "none"
     return (f"device busy {busy / 1e3:.3f} ms of a {wall * 1e3:.1f} ms profiled run "
             f"({100 * busy / 1e3 / (wall * 1e3):.1f}%), {len(dev_events)} device events; "
             f"NN sweep (both passes) {sweep_ms:.3f} ms over {len(sweep)} kernels; "
+            f"B3 passes: {b3_line}; "
             "largest: " + ", ".join(f"{n[:40]} {t / 1e3:.3f} ms" for n, t in top))
 
 
@@ -590,8 +680,6 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     from rspc_tpu_torch import cuda_build
-    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
-    from rspc_tpu_torch.ops.deproject import Intrinsics
 
     t0 = time.perf_counter()
     cuda_build.build(verbose=True)
@@ -601,11 +689,8 @@ def main() -> int:
     nn = phase_nn(dev)
     nn_stream = phase_nn_stream(dev)
 
-    seq = SyntheticSequence(
-        n_frames=N_FRAMES, yaw_step=YAW_STEP, intr=Intrinsics.simple(WIDTH, HEIGHT)
-    )
     t0 = time.perf_counter()
-    clouds = seq.clouds(device=dev)
+    seq, clouds = render(dev, WIDTH, HEIGHT)
     torch.cuda.synchronize()
     log(f"rendered {N_FRAMES} {WIDTH}x{HEIGHT} frames on the card in "
         f"{time.perf_counter() - t0:.3f} s")

@@ -44,10 +44,8 @@ _SIGNATURES = {
     "rspc_nn_sweep": (_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP),
     # resident blocks of the NN sweep's pass 1 per SM -> int*
     "rspc_nn_sweep_occupancy": (_VP,),
-    # strong, weak, out, frames, h, w, stream
-    "rspc_hysteresis": (_VP, _VP, _VP, _I, _I, _I, _VP),
-    # max dynamic shared memory per block (bytes) -> int*
-    "rspc_hysteresis_smem_limit": (_VP,),
+    # strong, weak, scratch, out, frames, h, w, tiles_y, tiles_x, stream
+    "rspc_hysteresis": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP),
 }
 
 def reset_counts() -> None:
@@ -149,15 +147,6 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def smem_optin_limit() -> int:
-    """Largest dynamic shared memory one block may opt into (bytes)."""
-    v = ctypes.c_int(0)
-    check(library().rspc_hysteresis_smem_limit(ctypes.addressof(v)),
-          "rspc_hysteresis_smem_limit")
-    return v.value
 
 
 @functools.lru_cache(maxsize=None)

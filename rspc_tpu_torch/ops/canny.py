@@ -7,12 +7,16 @@ pixels through weak pixels -- PCL's DFS edge tracing reaches the same
 set).
 
 Hysteresis is kernel B3: for CUDA tensors :func:`_hysteresis` launches
-``csrc/hysteresis.cu``; for CPU tensors it runs the plain fixpoint
-(:func:`_hysteresis_plain`, the JAX package's ``_propagate_line`` +
-``_dilate8`` rounds). There is no fallback between the two.
+``csrc/hysteresis.cu`` (connected-components labelling of ``weak |
+strong`` in three passes over 32x32 tiles, frames of any size); for CPU
+tensors it runs the plain fixpoint (:func:`_hysteresis_plain`, the JAX
+package's ``_propagate_line`` + ``_dilate8`` rounds). There is no
+fallback between the two.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -90,36 +94,65 @@ def _hysteresis_plain(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
         cur = grown
 
 
+# csrc/hysteresis.cu: the tile side of passes 1 and 2, and the passes a
+# call launches
+TILE = 32
+PASSES = 3
+# a pixel's key is its flat index over the batch with bit 31 as a flag
+MAX_PIXELS = 2**31
+
+
+class HysteresisPlan(NamedTuple):
+    """A launch of kernel B3 on a ``[frames, h, w]`` batch: the tile grid
+    of one frame, the tiles of the batch (a block each in pass 1, a warp
+    each in pass 2), and the int32 scratch words (4 words of border bits
+    per tile, then a label per pixel)."""
+
+    tiles_y: int
+    tiles_x: int
+    tiles: int
+    scratch: int
+
+
+def plan(frames: int, h: int, w: int) -> HysteresisPlan:
+    """Kernel B3's launch plan; raises when the batch has ``MAX_PIXELS``
+    pixels or more (the keys would overflow)."""
+    pixels = frames * h * w
+    if pixels >= MAX_PIXELS:
+        raise ValueError(
+            f"hysteresis: a batch of {frames} x {h} x {w} = {pixels} pixels; "
+            f"the kernel takes fewer than 2**31"
+        )
+    tiles_y, tiles_x = -(-h // TILE), -(-w // TILE)
+    tiles = frames * tiles_y * tiles_x
+    return HysteresisPlan(tiles_y, tiles_x, tiles, 4 * tiles + pixels)
+
+
 def hysteresis_cuda(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
     """Kernel B3 (``csrc/hysteresis.cu``), replacing the TPU kernel
     ``rspc_tpu/ops/canny.py::_hysteresis_kernel``.
 
     ``strong``/``weak``: bool ``[B, H, W]`` CUDA tensors; returns bool
-    ``[B, H, W]``. One CTA per frame holds the frame's weak and current
-    masks bit-packed in shared memory (2 * H * ceil(W/32) words: 76.8 KB
-    at 640x480) and iterates row and column sweeps to the fixpoint
-    in-kernel, so the frame never returns to device memory until done.
-    What bounds it on the card: the serial dependence along a chain of
-    weak pixels (latency of shared-memory sweeps), not bytes or FLOPs;
-    the sweeps carry a whole run per pass, so a round lights every pixel
-    reachable without changing direction twice. Frames whose masks do
-    not fit one block's shared memory raise."""
+    ``[B, H, W]``, bit for bit :func:`_hysteresis_plain` on each frame.
+    The result is the union of the 8-connected components of ``weak |
+    strong`` that hold a strong pixel, so the kernel labels components:
+    union-find over the row runs of each 32x32 tile in shared memory (one
+    block per tile of the batch), a merge across tile borders on global
+    labels (never across a frame's edge or a row's end), and an output
+    pass; see the source's note. One call launches the ``PASSES`` passes
+    and counts one launch. Frames of any size run; the scratch is one
+    int32 per pixel and four per tile (:func:`plan`)."""
     cuda_build.require_cuda("hysteresis strong", strong, torch.bool)
+    if strong.dim() != 3:
+        raise ValueError(f"hysteresis: expected [B, H, W], got {tuple(strong.shape)}")
     frames, h, w = strong.shape
     cuda_build.require_cuda("hysteresis weak", weak, torch.bool, strong.shape)
-    lib = cuda_build.library()
-    limit = cuda_build.smem_optin_limit()
-    # two bit-packed masks, plus the kernel's static "changed" flag
-    need = 2 * h * ((w + 31) // 32) * 4 + 16
-    if need > limit:
-        raise ValueError(
-            f"hysteresis: a {h}x{w} frame needs {need} B of shared memory, "
-            f"the card allows {limit} B per block"
-        )
+    p = plan(frames, h, w)
+    scratch = torch.empty(p.scratch, dtype=torch.int32, device=strong.device)
     out = torch.empty_like(strong)
-    code = lib.rspc_hysteresis(
-        strong.data_ptr(), weak.data_ptr(), out.data_ptr(), frames, h, w,
-        cuda_build.stream_of(strong),
+    code = cuda_build.library().rspc_hysteresis(
+        strong.data_ptr(), weak.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        frames, h, w, p.tiles_y, p.tiles_x, cuda_build.stream_of(strong),
     )
     cuda_build.check(code, "rspc_hysteresis")
     cuda_build.LAUNCHES["hysteresis"] += 1
@@ -128,8 +161,8 @@ def hysteresis_cuda(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
 
 def _hysteresis(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
     """Grow strong edges through weak pixels to the fixpoint, for one
-    ``[H, W]`` frame or a ``[B, H, W]`` batch (the batch is the kernel's
-    grid). CUDA tensors launch kernel B3; CPU tensors take the plain
+    ``[H, W]`` frame or a ``[B, H, W]`` batch (one kernel call for the
+    batch). CUDA tensors launch kernel B3; CPU tensors take the plain
     version frame by frame."""
     if strong.is_cuda:
         batched = strong.dim() == 3

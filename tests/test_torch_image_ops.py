@@ -6,7 +6,9 @@ on seeded random masks.
 Tolerances:
   * conv2d_same / box_sum / estimate_normals: atol 1e-5 (different
     reduction order in the cumulative sums and norms);
-  * hysteresis: exact (a boolean closure);
+  * hysteresis: exact (a boolean closure), on random masks and on every
+    ``ops/hysteresis_check.py`` case at 48x64, also against a
+    ``scipy.ndimage.label`` oracle of the component identity;
   * canny: exact against the JAX package evaluated op by op
     (``jax.disable_jit``, plain IEEE f32 like the port's kernels), and,
     against the jitted JAX program, equal up to pixels whose magnitude lies
@@ -37,6 +39,7 @@ from rspc_tpu_torch.interop import cloud_from_numpy
 from rspc_tpu_torch.ops import canny as tcanny
 from rspc_tpu_torch.ops import image as timage
 from rspc_tpu_torch.ops.edges import _frame_inputs, extract_edge_features
+from rspc_tpu_torch.ops.hysteresis_check import hysteresis_cases, hysteresis_truth
 from rspc_tpu_torch.ops.normals import estimate_normals
 
 jcanny = importlib.import_module("rspc_tpu.ops.canny")
@@ -112,6 +115,51 @@ def test_hysteresis_exact_vs_xla_and_pallas(seed, shape, p_weak):
         jnp.asarray(strong), jnp.asarray(weak), interpret=True))
     np.testing.assert_array_equal(got, want_xla)
     np.testing.assert_array_equal(got, want_pallas)
+
+
+CASE_H, CASE_W = 48, 64
+
+
+@pytest.mark.parametrize("case", [c[0] for c in hysteresis_cases(CASE_H, CASE_W)])
+def test_hysteresis_adversarial_cases(case):
+    """The port's batched hysteresis, the JAX package's XLA fixpoint and
+    its Pallas kernel (interpreted) frame by frame, and the components of
+    ``strong | weak`` that hold a strong pixel: all the same bits."""
+    _, strong, weak = next(c for c in hysteresis_cases(CASE_H, CASE_W) if c[0] == case)
+    got = tcanny._hysteresis(torch.from_numpy(strong), torch.from_numpy(weak)).numpy()
+    np.testing.assert_array_equal(got, hysteresis_truth(strong, weak))
+    for s, w, g in zip(strong, weak, got):
+        want_xla = np.asarray(jcanny._hysteresis(jnp.asarray(s), jnp.asarray(w)))
+        want_pallas = np.asarray(jcanny._hysteresis_pallas(
+            jnp.asarray(s), jnp.asarray(w), interpret=True))
+        np.testing.assert_array_equal(g, want_xla)
+        np.testing.assert_array_equal(g, want_pallas)
+
+
+@pytest.mark.parametrize("frames,h,w,tiles", [
+    (10, 480, 640, (15, 20)), (10, 720, 1280, (23, 40)), (1, 37, 33, (2, 2)),
+    (2, 1, 640, (1, 20)), (2, 480, 1, (15, 1)), (1, 2000, 2000, (63, 63)),
+    (1, 32, 32, (1, 1)), (3, 33, 31, (2, 1)),
+])
+def test_hysteresis_plan(frames, h, w, tiles):
+    """Kernel B3's plan: the fewest 32x32 tiles that cover a frame, and
+    scratch for 4 words of border bits per tile of the batch and a label
+    per pixel."""
+    p = tcanny.plan(frames, h, w)
+    assert (p.tiles_y, p.tiles_x) == tiles
+    assert (p.tiles_y - 1) * tcanny.TILE < h <= p.tiles_y * tcanny.TILE
+    assert (p.tiles_x - 1) * tcanny.TILE < w <= p.tiles_x * tcanny.TILE
+    assert p.tiles == frames * p.tiles_y * p.tiles_x
+    assert p.scratch == 4 * p.tiles + frames * h * w
+
+
+def test_hysteresis_plan_refuses_2_to_the_31_pixels():
+    """Keys are a flat index with bit 31 as a flag."""
+    assert tcanny.plan(1, 46340, 46341).scratch - 4 * 1449 * 1449 == 46340 * 46341 < 2**31
+    assert tcanny.plan(2, 2**15, 2**15 - 1).tiles == 2 * 1024 * 1024
+    for shape in ((2, 2**15, 2**15), (1, 2**16, 2**15), (3, 30000, 30000)):
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            tcanny.plan(*shape)
 
 
 def test_hysteresis_batch_is_per_frame():

@@ -12,6 +12,7 @@ import torch
 
 from rspc_tpu_torch import cuda_build
 from rspc_tpu_torch.ops.canny import _hysteresis, _hysteresis_plain, hysteresis_cuda
+from rspc_tpu_torch.ops.hysteresis_check import hysteresis_cases, hysteresis_truth
 from rspc_tpu_torch.ops import nn as tnn
 from rspc_tpu_torch.ops.nn import (
     nearest_neighbors,
@@ -189,22 +190,58 @@ def test_icp_fitness_sweep_takes_the_routed_kernel(dev, monkeypatch):
     assert cuda_build.LAUNCHES["nn_sweep"] == before["nn_sweep"]
 
 
-@pytest.mark.parametrize("shape,p_weak", [((3, 64, 256), 0.3), ((2, 480, 640), 0.45),
-                                          ((1, 37, 33), 0.6)])
-def test_hysteresis_kernel_matches_plain(dev, shape, p_weak):
-    g = torch.Generator().manual_seed(shape[1])
-    weak = torch.rand(shape, generator=g) < p_weak
-    strong = weak & (torch.rand(shape, generator=g) < 0.03)
-    strong[:, 0, 0] = True
-    strong, weak = strong.to(dev), weak.to(dev)
+def _hysteresis_vs_plain(strong, weak):
+    """The kernel through the dispatch (one launch counted) against the
+    plain version frame by frame, bit for bit."""
     before = cuda_build.LAUNCHES["hysteresis"]
     got = _hysteresis(strong, weak)
     assert cuda_build.LAUNCHES["hysteresis"] == before + 1
     want = torch.stack([_hysteresis_plain(s, w) for s, w in zip(strong, weak)])
-    assert torch.equal(got, want)
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
 
 
-def test_hysteresis_kernel_refuses_oversized_frames(dev):
-    big = torch.zeros((1, 2000, 2000), dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        hysteresis_cuda(big, big)
+@pytest.mark.parametrize("shape,p_weak", [((3, 64, 256), 0.3), ((2, 480, 640), 0.45),
+                                          ((1, 37, 33), 0.6), ((4, 720, 1280), 0.45),
+                                          ((2, 1080, 1920), 0.6), ((1, 2000, 2000), 0.45)])
+def test_hysteresis_kernel_matches_plain(dev, shape, p_weak):
+    """Random batches, up to frames no shared memory could hold whole."""
+    g = torch.Generator().manual_seed(shape[1])
+    weak = torch.rand(shape, generator=g) < p_weak
+    strong = weak & (torch.rand(shape, generator=g) < 0.03)
+    strong[:, 0, 0] = True
+    _hysteresis_vs_plain(strong.to(dev), weak.to(dev))
+
+
+@pytest.mark.parametrize("case", [c[0] for c in hysteresis_cases(480, 640)])
+def test_hysteresis_kernel_adversarial_cases(dev, case):
+    """Every ``hysteresis_check`` case at 480x640, against the plain
+    version and the ``scipy.ndimage.label`` oracle."""
+    _, strong, weak = next(c for c in hysteresis_cases(480, 640) if c[0] == case)
+    got = _hysteresis_vs_plain(torch.from_numpy(strong).to(dev),
+                               torch.from_numpy(weak).to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy(), hysteresis_truth(strong, weak))
+
+
+def test_hysteresis_kernel_unaligned_masks(dev):
+    """Masks whose pointers forbid 16-byte loads and stores take the
+    kernel's narrow loads, with the same bits."""
+    g = torch.Generator().manual_seed(3)
+    shape = (3, 96, 160)
+    base_w = torch.rand((shape[0] * 96 * 160 + 3,), generator=g) < 0.5
+    base_s = base_w & (torch.rand(base_w.shape, generator=g) < 0.01)
+    weak = base_w.to(dev)[1:-2].view(shape)
+    strong = base_s.to(dev)[3:].view(shape)
+    assert weak.data_ptr() % 16 and strong.data_ptr() % 16
+    _hysteresis_vs_plain(strong, weak)
+
+
+def test_hysteresis_kernel_repeats_its_bits(dev):
+    """Labels differ from launch to launch; the output must not."""
+    _, strong, weak = hysteresis_cases(480, 640)[2]  # percolation at p_weak 0.41
+    strong = torch.from_numpy(np.repeat(strong, 8, axis=0)).to(dev)
+    weak = torch.from_numpy(np.repeat(weak, 8, axis=0)).to(dev)
+    first = hysteresis_cuda(strong, weak)
+    assert all(torch.equal(first[i], first[0]) for i in range(8))
+    for _ in range(20):
+        assert torch.equal(hysteresis_cuda(strong, weak), first)
