@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. the NN sweep on B1's route (``csrc/nn_sweep.cu``, ``ops/nn.py::plan``)
      against its plain PyTorch version on the card: the 9 adversarial
      ``nn_check`` cases against float64 truth, and the main-path shapes
-     (5,120 sources against a 102,400-capacity target; the anchor's
-     30,726 x 10,240), each held against the plain sweep and printed with
+     (5,120 sources against a 102,400-capacity target, also config 3's
+     coarse ICP; the anchor's 30,726 x 10,240; the reference preset's
+     16,384 x 163,840), each held against the plain sweep and printed with
      its launch plan, and the kernel's ``ptxas`` registers and spills;
   4. kernel B3 (Canny hysteresis, ``csrc/hysteresis.cu``) against its
      plain version, bit for bit, on the masks of 10 rendered 640x480
@@ -43,7 +44,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the kernel gives both routes the same winners bit for bit, so the
      difference is expected to be exactly 0). Its error against ground
      truth is printed, not gated: guess-free ICP drifts on a rotating
-     sequence by design.
+     sequence by design;
+  8. BASELINE config 2: the 10 frames center-cropped to 288x384 and
+     labelled together with all five classes (``EdgeConfig()``): B3
+     launched twice (the high-curvature and the RGB masks) and no plain
+     version on the card; the high-curvature masks (and the same at
+     thresholds that light the class) through B3 equal the plain version
+     bit for bit; the depth classes equal the port's CPU run exactly and
+     the whole labels differ from it in at most 0.1% of the valid pixels
+     of any frame; the labeler's min wall of 3 runs and B3's time on the
+     high-curvature masks;
+  9. BASELINE config 3: ``ICPEdgeBasedRegistration(thetas=seq.thetas(),
+     config=north_star_config())`` on the 10 full frames, the IMU filter
+     on the card: one warm-up, timed runs, a profile and a counted run
+     (host syncs too); every pair converged, max |T_est - T_gt| < 1e-3,
+     B1's route and B3 launched, B2's route and the plain versions not;
+     the thetas equal those of the capture loop (``get_clouds``) over a
+     replay recording of the same frames and IMU stream (atol 1e-6);
+ 10. the reference's ``--all`` path: that recording through
+     ``get_clouds`` with ``CaptureConfig()`` (BGR swizzle, 3/5 crop),
+     then ``ICPEdgeBasedRegistration(thetas, config=PipelineConfig(),
+     dataset_dir=...)``: finite totals; ``edge-{i}.pcd`` for every frame
+     and ``edge_cloud.pcd`` written and read back equal to the clouds
+     stored; the loop path (``use_scan=False``) with the same converged
+     flags and totals within 2e-4 (its host syncs counted); the RGB-only
+     labeller with identical totals; the converged count and the error
+     against ground truth printed, not gated (the reference preset has
+     no guard and a 1 cm fine cap); and ``NDTEdgeBasedRegistration(
+     rads=-0.08, config=PipelineConfig())`` once on the same clouds.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -56,7 +84,9 @@ each output written once) over 3.35 TB/s and its FP32 operations (4
 FMA-class operations per valid source x valid target pair for the NN
 sweeps) over 33.5 T FMA/s, the published peaks of an H100 SXM at 700 W.
 
-The last two lines of standard output are one JSON object per kernel
+Each path's run that counts launches starts from counts set to 0; the
+kernels line sums them over the paths and an earlier line gives them per
+path. The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,6 +109,14 @@ MAX_ERR = 1e-3
 # half the capacity, the mean fill over the chain's nine pairs
 NN_SRC, NN_TGT_CAP, NN_TGT_LIVE = 5120, 102_400, 51_200
 NN_TOL = 1e-5  # |dist2| agreement at main-path shapes (f32 re-score of one winner)
+# the reference preset's sweeps: every voxel edge point (no source cap,
+# VoxelConfig max_points) against 10 frames' voxel capacity, half live
+REF_SRC, REF_TGT_CAP, REF_TGT_LIVE = 16_384, 163_840, 81_920
+CROP_H, CROP_W = 288, 384  # the 3/5 center crop of 480x640
+EDGE_DIFF_FRAC = 1e-3  # labels vs the CPU run: share of a frame's valid pixels
+PATHS_TOL = 2e-4  # fused vs loop totals (tests/test_pipeline.py)
+DEPTH_TYPES = ("nan_boundary", "occluding", "occluded")
+HC_LIT = (0.05, 0.1)  # high-curvature thresholds that light this scene's creases
 # the incremental chain's last pair: the voxel source (VoxelConfig
 # max_points) against 10 full frames' capacity, 9 of them live
 INC_SRC, INC_TGT_CAP, INC_TGT_LIVE = 16_384, 10 * WIDTH * HEIGHT, 9 * WIDTH * HEIGHT
@@ -279,8 +317,32 @@ def phase_nn(dev):
         f"kernel {a_ms:.4f} ms (wrapper {a_wrap:.3f} ms), plain {a_plain:.3f} ms, "
         f"torch.cdist+min {a_lib:.3f} ms, bound {a_bnd['bound_ms']:.4f} ms "
         f"({a_bnd['bound_by']})")
-    return {"max_abs_err": max(err, a_err), "ms": ms, "wrapper_ms": wrap_ms,
-            "plain_ms": plain_ms, **bnd, "library_ms": lib_ms}
+
+    # the reference preset's sweeps: 16,384 voxel edge points against the
+    # 10-frame voxel target
+    tgt = rng.uniform(-3.0, 3.0, (REF_TGT_CAP, 3)).astype(np.float32)
+    tv = np.zeros(REF_TGT_CAP, bool)
+    tv[:REF_TGT_LIVE] = rng.random(REF_TGT_LIVE) < 0.98
+    src = (tgt[rng.integers(0, REF_TGT_LIVE, REF_SRC)]
+           + rng.normal(0, 0.01, (REF_SRC, 3))).astype(np.float32)
+    sv = rng.random(REF_SRC) < 0.95
+    r_args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
+    r_err = nn_vs_plain("B1 reference-preset shape", r_args,
+                        nearest_neighbors_cuda(*r_args), 4096)
+    r_plan = card_plan(REF_SRC, dev)
+    r_ms = cuda_ms(nn_kernel_only(r_args, r_plan), 20)
+    r_wrap = cuda_ms(lambda: nearest_neighbors_cuda(*r_args), 10)
+    r_plain = cuda_ms(lambda: nearest_neighbors(*r_args, chunk=4096), 2)
+    r_lib = cuda_ms(lambda: torch.cdist(r_args[0], r_args[2]).min(dim=1), 2)
+    r_bnd = nn_bound(*r_args)
+    log(f"B1 reference-preset shape {REF_SRC} x {REF_TGT_CAP} (live {REF_TGT_LIVE}), "
+        f"{plan_line(r_plan, dev)}: max |dist2 kernel - plain| {r_err:.3e}; "
+        f"kernel {r_ms:.4f} ms (wrapper {r_wrap:.3f} ms), plain {r_plain:.3f} ms, "
+        f"torch.cdist+min {r_lib:.3f} ms, bound {r_bnd['bound_ms']:.4f} ms "
+        f"({r_bnd['bound_by']})")
+    return {"max_abs_err": max(err, a_err, r_err), "ms": ms, "wrapper_ms": wrap_ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": lib_ms,
+            "ms_reference_shape": r_ms, "bound_ms_reference_shape": r_bnd["bound_ms"]}
 
 
 def phase_nn_stream(dev):
@@ -670,6 +732,291 @@ def phase_incremental(dev, seq, clouds):
     return launches
 
 
+def count_syncs(fn):
+    """(fn's result, the host syncs it made): ``torch.cuda`` reports each
+    synchronizing call as a warning under sync debug mode."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def counted(fn):
+    """(fn's result, launches, plain versions on CUDA tensors) of one run
+    from counts set to 0."""
+    from rspc_tpu_torch import cuda_build
+
+    cuda_build.reset_counts()
+    out = fn()
+    return out, dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+
+
+def timed_runs(what, run):
+    """One warm-up, then ``TIMED_RUNS`` runs bracketed by synchronize;
+    returns the run times (s)."""
+    import torch
+
+    t0 = time.perf_counter()
+    run()
+    log(f"{what} warm-up: {time.perf_counter() - t0:.3f} s")
+    times = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    log(f"{what} timed runs (s): " + ", ".join(f"{t:.4f}" for t in times))
+    return times
+
+
+def max_gt_err(seq, totals) -> float:
+    t = totals.cpu().numpy()
+    return float(max(np.abs(t[i - 1] - seq.gt_transform(i)).max() for i in range(1, N_FRAMES)))
+
+
+def phase_edges5(dev, clouds):
+    """BASELINE config 2: crop + 5-class labels of the 10 frames, batched."""
+    import torch
+
+    from rspc_tpu_torch.config import EdgeConfig
+    from rspc_tpu_torch.ops.canny import _hysteresis_plain, canny_from_gradients_masks, hysteresis_cuda
+    from rspc_tpu_torch.ops.edges import extract_organized_edges_batch
+    from rspc_tpu_torch.ops.normals import estimate_normals
+
+    crop = [c.center_crop_3_5() for c in clouds]
+    cfg = EdgeConfig()
+
+    def run():
+        labels = extract_organized_edges_batch(crop, cfg)
+        torch.cuda.synchronize()
+        return labels
+
+    labels, launches, plain = counted(run)
+    log(f"config 2 launches in one labelling: {launches}; plain versions on CUDA "
+        f"tensors: {plain}")
+    if launches["hysteresis"] != 2 or any(launches[k] for k in ("nn_sweep", "nn_sweep_split")) \
+            or any(plain.values()):
+        raise AssertionError(f"config 2 kernels: {launches}, plain {plain}")
+    times = []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+
+    # the high-curvature masks the labeller hands B3, and the same at
+    # thresholds that light the class, through B3 against the plain version
+    est = [estimate_normals(c, cfg) for c in crop]
+    nrm, nv = torch.stack([e[0] for e in est]), torch.stack([e[1] for e in est])
+    hc_masks = {}
+    for name, th in (("default", (cfg.hc_canny_low_threshold, cfg.hc_canny_high_threshold)),
+                     ("lit", HC_LIT)):
+        strong, weak = (m.contiguous() for m in
+                        canny_from_gradients_masks(nrm[..., 0], nrm[..., 1], *th, valid=nv))
+        got = hysteresis_cuda(strong, weak)
+        want = torch.stack([_hysteresis_plain(a, b) for a, b in zip(strong, weak)])
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"B3 on the {name} high-curvature masks: {bad} pixels differ")
+        hc_masks[name] = (strong, weak, int(strong.sum()), int(weak.sum()), int(want.sum()))
+    strong, weak = hc_masks["default"][:2]
+    hc_ms = device_ms(lambda: hysteresis_cuda(strong, weak), 50)
+    hc_plain = cuda_ms(lambda: [_hysteresis_plain(a, b) for a, b in zip(strong, weak)], 3)
+    hc_bnd, hc_by = bound(3 * strong.numel(), 0)
+    lit_ms = device_ms(lambda: hysteresis_cuda(*hc_masks["lit"][:2]), 50)
+
+    # against the port's CPU run on the same clouds
+    cpu = [c.map(lambda x: x.cpu()) for c in crop]
+    want = extract_organized_edges_batch(cpu, cfg)
+    depth_cfg = EdgeConfig(edge_types=DEPTH_TYPES)
+    d_card = extract_organized_edges_batch(crop, depth_cfg).cpu()
+    d_cpu = extract_organized_edges_batch(cpu, depth_cfg)
+    if not torch.equal(d_card, d_cpu):
+        raise AssertionError(f"depth classes: {int((d_card != d_cpu).sum())} pixels differ "
+                             f"from the CPU run")
+    got = labels.cpu()
+    valid = torch.stack([c.valid for c in cpu])
+    diff = [int((got[i] != want[i]).sum()) for i in range(len(crop))]
+    limit = [EDGE_DIFF_FRAC * int(valid[i].sum()) for i in range(len(crop))]
+    counts = [int((got == k).sum()) for k in range(6)]
+    log(f"config 2: {len(crop)} x {CROP_H}x{CROP_W} labelled, pixels per class 0-5 {counts}; "
+        f"depth classes equal to the CPU run; labels differing from the CPU run per frame "
+        f"{diff} (limit 0.1% of valid pixels, {min(limit):.0f}-{max(limit):.0f})")
+    if any(d > lim for d, lim in zip(diff, limit)):
+        raise AssertionError(f"labels differ from the CPU run: {diff}")
+    if counts[5] == 0 or sum(counts[1:4]) == 0:
+        raise AssertionError(f"config 2 labels look empty: {counts}")
+    log(f"config 2 labeller min wall {min(times):.4f} s (runs "
+        + ", ".join(f"{t:.4f}" for t in times) + "); "
+        f"B3 on the high-curvature masks (strong {hc_masks['default'][2]}, weak "
+        f"{hc_masks['default'][3]}, out {hc_masks['default'][4]} pixels) {hc_ms:.4f} ms, "
+        f"plain {hc_plain:.3f} ms, bound {hc_bnd:.5f} ms ({hc_by}); at thresholds "
+        f"{HC_LIT} (strong {hc_masks['lit'][2]}, weak {hc_masks['lit'][3]}, out "
+        f"{hc_masks['lit'][4]}) {lit_ms:.4f} ms; both bit-exact vs plain")
+    return launches, {"ms_high_curvature_288x384": hc_ms,
+                      "plain_ms_high_curvature_288x384": hc_plain,
+                      "bound_ms_high_curvature_288x384": hc_bnd}
+
+
+def replay_capture(seq, dev):
+    """The rendered frames and their IMU stream as a replay recording
+    (built as ``rspc_tpu/cli.py::_source`` builds it), through the capture
+    loop ``get_clouds`` with ``CaptureConfig()``: (clouds, thetas)."""
+    from rspc_tpu_torch.capture.replay import ReplaySource, get_clouds
+    from rspc_tpu_torch.config import CaptureConfig
+
+    depth, color = zip(*[(d.cpu().numpy().astype(np.uint16), c.cpu().numpy())
+                         for d, c in seq.frames(dev)])
+    stream, snap = seq.imu_stream(dev)
+    data, ts = stream.data.cpu().numpy(), stream.ts.cpu().numpy()
+    i = seq.intr
+    src = ReplaySource({
+        "depth": np.stack(depth), "color": np.stack(color), "ts": ts[snap],
+        "gyro": data[snap - 1], "accel": data[snap],
+        "intr": np.asarray([i.width, i.height, i.fx, i.fy, i.ppx, i.ppy], np.float32),
+    })
+    return get_clouds(src, N_FRAMES, CaptureConfig(), device=dev)
+
+
+def phase_icp_edge(dev, seq, clouds, replay_thetas):
+    """BASELINE config 3: the ICP-edge scheme with IMU guesses."""
+    import torch
+
+    from rspc_tpu_torch.presets import north_star_config
+    from rspc_tpu_torch.registration.schemes import ICPEdgeBasedRegistration
+
+    thetas = seq.thetas(device=dev)
+    t_err = float(np.abs(thetas - replay_thetas).max())
+    log(f"config 3 thetas (filter on the card) vs the capture loop's: max diff {t_err:.3e}")
+    if not t_err <= 1e-6:
+        raise AssertionError(f"thetas differ from get_clouds': {t_err:.3e}")
+    config = north_star_config()
+
+    def run():
+        scheme = ICPEdgeBasedRegistration(thetas=thetas, config=config)
+        result = scheme.registration(clouds)
+        torch.cuda.synchronize()
+        return scheme, result
+
+    times = timed_runs("config 3", run)
+    log("config 3 profile: " + device_profile(run))
+    _, syncs = count_syncs(run)
+    (scheme, result), launches, plain = counted(run)
+    converged = [bool(f.converged) for _, f in scheme.results]
+    err = max_gt_err(seq, scheme.total_transforms)
+    log(f"config 3 min wall {min(times):.4f} s; converged {sum(converged)}/{len(converged)}; "
+        f"max |T_est - T_gt| {err:.3e}; host syncs {syncs}; launches {launches}; plain "
+        f"versions on CUDA tensors {plain}")
+    if not all(converged) or not err < MAX_ERR:
+        raise AssertionError(f"config 3: converged {converged}, max error {err:.3e}")
+    if (launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0
+            or launches["nn_sweep_split"] != 0 or any(plain.values())):
+        raise AssertionError(f"config 3 kernels: {launches}, plain {plain}")
+    if not np.isfinite(result.xyz.cpu().numpy()).all():
+        raise AssertionError("config 3: non-finite global cloud")
+    return launches
+
+
+def phase_reference(dev, seq, clouds, thetas):
+    """The ``--all`` path under the reference preset, on the replayed,
+    cropped, BGR-swizzled clouds."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from rspc_tpu_torch.config import EdgeConfig, PipelineConfig
+    from rspc_tpu_torch.io.pcd import load_pcd
+    from rspc_tpu_torch.registration.schemes import (
+        ICPEdgeBasedRegistration,
+        NDTEdgeBasedRegistration,
+    )
+
+    base = PipelineConfig()
+    if (clouds[0].height, clouds[0].width) != (CROP_H, CROP_W):
+        raise AssertionError(f"replayed clouds are {clouds[0].height}x{clouds[0].width}")
+
+    def run(config=base, dataset_dir=None, cls=ICPEdgeBasedRegistration, **kw):
+        scheme = cls(config=config, dataset_dir=dataset_dir, **kw)
+        result = scheme.registration(clouds)
+        torch.cuda.synchronize()
+        return scheme, result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        times = timed_runs("reference preset",
+                           lambda: run(dataset_dir=tmp, thetas=thetas))
+        log("reference preset profile: " + device_profile(lambda: run(thetas=thetas)))
+        _, syncs = count_syncs(lambda: run(thetas=thetas))
+        (scheme, result), launches, plain = counted(lambda: run(dataset_dir=tmp, thetas=thetas))
+        if (launches["nn_sweep"] <= 0 or launches["hysteresis"] != 2
+                or launches["nn_sweep_split"] != 0 or any(plain.values())):
+            raise AssertionError(f"reference preset kernels: {launches}, plain {plain}")
+        totals = scheme.total_transforms
+        if not torch.isfinite(totals).all():
+            raise AssertionError("reference preset: non-finite totals")
+        out = scheme._out
+        stored = [out["edges_down0"]] + [out["features"].map(lambda x, i=i: x[i])
+                                         for i in range(1, N_FRAMES)]
+        files = sorted(os.listdir(tmp))
+        want_files = sorted([f"edge-{i}.pcd" for i in range(N_FRAMES)] + ["edge_cloud.pcd"])
+        if files != want_files:
+            raise AssertionError(f"reference preset wrote {files}")
+        for name, cloud in [(f"edge-{i}.pcd", c) for i, c in enumerate(stored)] + [
+                ("edge_cloud.pcd", out["target"])]:
+            back = load_pcd(os.path.join(tmp, name), device="cpu")
+            v = cloud.valid.cpu()
+            xyz, rgb = cloud.xyz.cpu()[v], cloud.rgb.cpu()[v]
+            if not (torch.equal(back.xyz, xyz)
+                    and torch.equal(back.rgb, torch.trunc(rgb.clamp(0, 255)))):
+                raise AssertionError(f"{name} does not read back as stored")
+        n_edge = [int(c.count()) for c in stored]
+
+    converged = [bool(f.converged) for _, f in scheme.results]
+    err = max_gt_err(seq, totals)
+    loop_cfg = dataclasses.replace(base, use_scan=False)
+    (loop, _), loop_syncs = count_syncs(lambda: run(loop_cfg, thetas=thetas))
+    loop_t0 = time.perf_counter()
+    run(loop_cfg, thetas=thetas)
+    loop_wall = time.perf_counter() - loop_t0
+    loop_conv = [bool(f.converged) for _, f in loop.results]
+    path_diff = float((loop.total_transforms - totals).abs().max())
+    rgb_cfg = dataclasses.replace(base, edge=EdgeConfig(edge_types=("rgb_canny",)))
+    rgb_only, _ = run(rgb_cfg, thetas=thetas)
+    log(f"reference preset min wall {min(times):.4f} s; converged {sum(converged)}/"
+        f"{len(converged)}; max |T_est - T_gt| {err:.3e} (not gated); host syncs {syncs}; "
+        f"launches {launches}; edge points per frame {n_edge}; "
+        f"{len(want_files)} PCDs read back as stored; loop path: wall {loop_wall:.4f} s, "
+        f"host syncs {loop_syncs}, converged {sum(loop_conv)}, max |T_fused - T_loop| "
+        f"{path_diff:.3e}; RGB-only labeller totals equal: "
+        f"{torch.equal(rgb_only.total_transforms, totals)}")
+    if loop_conv != converged or not path_diff <= PATHS_TOL:
+        raise AssertionError(f"fused and loop paths disagree: {path_diff:.3e}, "
+                             f"{converged} vs {loop_conv}")
+    if not torch.equal(rgb_only.total_transforms, totals):
+        raise AssertionError("the RGB-only labeller changed the totals")
+    if not np.isfinite(result.xyz.cpu().numpy()).all():
+        raise AssertionError("reference preset: non-finite global cloud")
+
+    t0 = time.perf_counter()
+    ndt, _ = run(cls=NDTEdgeBasedRegistration, rads=YAW_STEP)
+    ndt_wall = time.perf_counter() - t0
+    ndt_conv = [bool(f.converged) for _, f in ndt.results]
+    log(f"NDTEdgeBasedRegistration(rads={YAW_STEP}, PipelineConfig()) on the same clouds: "
+        f"wall {ndt_wall:.4f} s (one run, first of its shapes); converged "
+        f"{sum(ndt_conv)}/{len(ndt_conv)}; max |T_est - T_gt| "
+        f"{max_gt_err(seq, ndt.total_transforms):.3e}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -696,8 +1043,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
 
     hyst = phase_hysteresis(dev, clouds)
-    launches = phase_slice(dev, seq, clouds)
-    inc_launches = phase_incremental(dev, seq, clouds)
+    per_path = {"north star": phase_slice(dev, seq, clouds),
+                "incremental": phase_incremental(dev, seq, clouds)}
+    per_path["config 2"], hc = phase_edges5(dev, clouds)
+    ref_clouds, ref_thetas = replay_capture(seq, dev)
+    per_path["config 3"] = phase_icp_edge(dev, seq, clouds, ref_thetas)
+    per_path["reference preset"] = phase_reference(dev, seq, ref_clouds, ref_thetas)
+    log(f"launches per path (each from counts set to 0): {per_path}")
+    launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["north star"]}
 
     if "jax" in sys.modules or "rspc_tpu" in sys.modules:
         raise AssertionError("the port imported jax or rspc_tpu")
@@ -709,11 +1062,11 @@ def main() -> int:
         {"name": "nn_sweep_split", "route": "cuda",
          "source": "rspc_tpu_torch/csrc/nn_sweep.cu",
          "replaces": "rspc_tpu/ops/nn_pallas.py:112",
-         "launches": inc_launches["nn_sweep_split"], **nn_stream},
+         "launches": launches["nn_sweep_split"], **nn_stream},
         {"name": "hysteresis", "route": "cuda",
          "source": "rspc_tpu_torch/csrc/hysteresis.cu",
          "replaces": "rspc_tpu/ops/canny.py:103",
-         "launches": launches["hysteresis"], **hyst},
+         "launches": launches["hysteresis"], **hyst, **hc},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ real edges. Depth is z-depth in Z16 millimetre units (depth_scale 0.001).
 
 Frames render on the device the caller names (the card by default;
 tests pass ``device="cpu"``), so the benchmark workload needs nothing
-from the JAX package. The IMU stream and
-``thetas()`` are not ported yet (ROADMAP.md Queue A).
+from the JAX package. ``imu_stream()`` gives one (gyro, accel) pair per
+frame, 2 s apart, consistent with the trajectory; ``thetas()`` runs the
+complementary filter over it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from rspc_tpu_torch.estimators.rotation import (
+    ACCEL,
+    GYRO,
+    ImuSample,
+    rotation_from_imu_stream,
+)
 from rspc_tpu_torch.ops.deproject import (
     Intrinsics,
     pixel_grid,
@@ -208,9 +215,42 @@ class SyntheticSequence:
                 depth = torch.from_numpy(noisy.astype(np.int32)).to(device)
             yield depth, color
 
-    def clouds(self, device="cuda", bgr: bool = False):
-        """The deprojected ``OrganizedCloud`` of every frame, on ``device``."""
-        return [
-            rgbd_to_organized_cloud(depth, color, self.intr, bgr=bgr)
-            for depth, color in self.frames(device)
-        ]
+    def clouds(self, device="cuda", bgr: bool = False, center_crop: bool = False):
+        """The deprojected ``OrganizedCloud`` of every frame, on ``device``;
+        ``center_crop`` keeps the middle 3/5 x 3/5 (the v1 capture's crop)."""
+        out = []
+        for depth, color in self.frames(device):
+            oc = rgbd_to_organized_cloud(depth, color, self.intr, bgr=bgr)
+            out.append(oc.center_crop_3_5() if center_crop else oc)
+        return out
+
+    def imu_stream(self, device="cuda"):
+        """One (gyro, accel) event pair per frame, 2 s apart (the capture
+        throttle). The gyro reads the yaw rate (0, omega, 0), omega the
+        frame's yaw difference over 2 s (frame 0 takes the first
+        interval's rate, which cancels in the rebased thetas), so the
+        filter's ``theta_i.y - theta_0.y`` is ``-(yaw_i - yaw_0)``; the
+        accel reads gravity (0, 9.81, 1e-3), a level camera. Returns the
+        ``ImuSample`` stream on ``device`` and the snapshot index of each
+        frame (its accel event, as ``get_theta()`` after both samples)."""
+        steps = [b - a for a, b in zip(self.yaws[:-1], self.yaws[1:])] or [0.0]
+        diffs = [steps[0]] + steps
+        kinds, data, ts, snap = [], [], [], []
+        t = 1000.0
+        for i in range(self.n_frames):
+            kinds += [GYRO, ACCEL]
+            data += [[0.0, diffs[i] / 2.0, 0.0], [0.0, 9.81, 1e-3]]
+            ts += [t, t]
+            snap.append(len(kinds) - 1)
+            t += 2000.0
+        stream = ImuSample.stream(kinds, np.asarray(data, np.float32),
+                                  np.asarray(ts, np.float32), device)
+        return stream, np.asarray(snap)
+
+    def thetas(self, device="cuda") -> np.ndarray:
+        """Per-frame filter outputs ``[n_frames, 3]``, as the capture loop
+        records them (src/capture.hpp:160-166); the filter runs on
+        ``device``."""
+        stream, snap = self.imu_stream(device)
+        _, all_thetas = rotation_from_imu_stream(stream)
+        return all_thetas.cpu().numpy()[snap]

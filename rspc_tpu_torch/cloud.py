@@ -168,6 +168,24 @@ class OrganizedCloud(_TensorFields):
             **map_optional(self, lambda x: x.reshape(*lead, hw, 3)),
         )
 
+    def center_crop_3_5(self) -> "OrganizedCloud":
+        """The middle 3/5 x 3/5 of the image, rows [H/5, 4H/5) x columns
+        [W/5, 4W/5), the reference's crop (src/blur_filter.hpp:18-36,
+        src/capture.hpp:79-88). H and W must be multiples of 5, where the
+        reference's resize and copy agree (640x480, 1280x720); leading
+        batch dimensions are kept."""
+        h, w = self.height, self.width
+        if h % 5 or w % 5:
+            raise ValueError("center_crop_3_5 requires H, W divisible by 5")
+        r0, r1, c0, c1 = h // 5, (h // 5) * 4, w // 5, (w // 5) * 4
+        img = lambda x: x[..., r0:r1, c0:c1, :]
+        return OrganizedCloud(
+            xyz=img(self.xyz),
+            rgb=img(self.rgb),
+            valid=self.valid[..., r0:r1, c0:c1],
+            **map_optional(self, img),
+        )
+
     @staticmethod
     def from_numpy(
         xyz: np.ndarray,

@@ -28,6 +28,7 @@ from rspc_tpu_torch.ops.image import (
     conv2d_same,
     gaussian_kernel_3x3,
     shift2d,
+    shift_hw,
 )
 
 
@@ -42,7 +43,8 @@ def _dilate8(mask: torch.Tensor) -> torch.Tensor:
 
 def _nms(mag: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """Keep local maxima along the gradient direction quantized to 4
-    sectors (tangent-band comparisons, identical to the JAX package)."""
+    sectors (tangent-band comparisons, identical to the JAX package), on
+    an ``[H, W]`` frame or an ``[n, H, W]`` stack."""
     t1 = float(np.float32(np.tan(np.pi / 8)))
     t2 = float(np.float32(np.tan(3 * np.pi / 8)))
     ax, ay = gx.abs(), gy.abs()
@@ -53,10 +55,10 @@ def _nms(mag: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
         torch.where(ay >= t2 * ax, 2, torch.where(same_sign, 1, 3)),
     )
     neighbors = [
-        (shift2d(mag, 0, 1), shift2d(mag, 0, -1)),    # horizontal gradient
-        (shift2d(mag, -1, 1), shift2d(mag, 1, -1)),   # 45 deg
-        (shift2d(mag, -1, 0), shift2d(mag, 1, 0)),    # vertical
-        (shift2d(mag, -1, -1), shift2d(mag, 1, 1)),   # 135 deg
+        (shift_hw(mag, 0, 1), shift_hw(mag, 0, -1)),    # horizontal gradient
+        (shift_hw(mag, -1, 1), shift_hw(mag, 1, -1)),   # 45 deg
+        (shift_hw(mag, -1, 0), shift_hw(mag, 1, 0)),    # vertical
+        (shift_hw(mag, -1, -1), shift_hw(mag, 1, 1)),   # 135 deg
     ]
     keep = torch.zeros(mag.shape, dtype=torch.bool, device=mag.device)
     for s, (n1, n2) in enumerate(neighbors):
@@ -184,10 +186,27 @@ def canny_masks(intensity: torch.Tensor, low: float, high: float):
     smoothed = conv2d_same(intensity, gaussian_kernel_3x3(1.0))
     gx = conv2d_same(smoothed, SOBEL_X)
     gy = conv2d_same(smoothed, SOBEL_Y)
+    return canny_from_gradients_masks(gx, gy, low, high)
+
+
+def canny_from_gradients_masks(gx, gy, low: float, high: float, valid=None):
+    """(strong, weak) of Canny's NMS and double threshold on gradient
+    images given from outside, ``[H, W]`` or ``[n, H, W]``; ``valid``
+    zeroes the magnitude where it is False."""
     mag = torch.sqrt(gx * gx + gy * gy)
-    keep = _nms(mag, gx, gy)
-    mag_nms = torch.where(keep, mag, 0.0)
+    if valid is not None:
+        mag = torch.where(valid, mag, 0.0)
+    mag_nms = torch.where(_nms(mag, gx, gy), mag, 0.0)
     return mag_nms > high, mag_nms > low
+
+
+def canny_from_gradients(gx, gy, low: float, high: float, valid=None):
+    """Canny NMS + hysteresis on gradient images given from outside: how
+    PCL derives HIGH_CURVATURE edges, with the normal image's (nx, ny) as
+    the gradients (OrganizedEdgeFromNormals::extractEdges). An
+    ``[n, H, W]`` stack is one hysteresis call (one launch of kernel B3
+    on CUDA tensors)."""
+    return _hysteresis(*canny_from_gradients_masks(gx, gy, low, high, valid))
 
 
 def canny(intensity: torch.Tensor, low: float = 40.0, high: float = 100.0):

@@ -57,9 +57,11 @@ def deproject_depth(
     else:
         z = depth.to(torch.float32) * depth_scale
     u, v = pixel_grid(h, w, depth.device)
-    x = (u - intr.ppx) / intr.fx
-    y = (v - intr.ppy) / intr.fy
-    return torch.stack([x * z, y * z, z], dim=-1)
+    # ``(u - ppx) / fx`` as XLA compiles the JAX package's capture path,
+    # a product with the f32 reciprocal, so that the points equal its bits
+    rx = float(np.float32(1) / np.float32(intr.fx))
+    ry = float(np.float32(1) / np.float32(intr.fy))
+    return torch.stack([((u - intr.ppx) * rx) * z, ((v - intr.ppy) * ry) * z, z], dim=-1)
 
 
 def project_points(xyz: torch.Tensor, intr: Intrinsics):

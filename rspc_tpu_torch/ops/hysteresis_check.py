@@ -24,7 +24,12 @@ frame, or of the other end of a row, may reach into it. The cases:
     end or on the next row's far end (the flattened index's neighbours
     in every direction), which must stay dark;
   * ``ragged_37x33``, ``ragged_1xW``, ``ragged_Hx1``: random masks on
-    frames whose sides are not multiples of any tile.
+    frames whose sides are not multiples of any tile;
+  * ``crease_bands``: masks shaped like the high-curvature class's (Canny
+    on the normal image): dense weak bands a few pixels wide along
+    straight creases at every angle, crossing one another and the tile
+    borders, over sparse weak speckle, with strong seeds in only three
+    bands.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` run every case
 through the kernel at 480x640; ``tests/test_torch_image_ops.py`` holds
@@ -108,6 +113,24 @@ def _row_wrap(h, w):
     return strong, weak
 
 
+def _crease_bands(rng, h, w, bands=12, seeds=3):
+    """Weak bands of half-width 1-2 px along random lines (p 0.9 inside),
+    weak speckle (p 0.05) elsewhere, a strong pixel on ``seeds`` bands."""
+    rr, cc = np.mgrid[0:h, 0:w]
+    weak = rng.random((h, w)) < 0.05
+    strong = np.zeros((h, w), bool)
+    for b in range(bands):
+        theta = rng.uniform(0, np.pi)
+        y0, x0 = rng.uniform(0, h), rng.uniform(0, w)
+        dist = np.abs((rr - y0) * np.cos(theta) - (cc - x0) * np.sin(theta))
+        band = dist <= rng.integers(1, 3)
+        weak |= band & (rng.random((h, w)) < 0.9)
+        if b < seeds:
+            on = np.argwhere(band & weak)
+            strong[tuple(on[rng.integers(len(on))])] = True
+    return strong, weak
+
+
 def hysteresis_cases(h: int, w: int, seed: int = 0):
     """Every adversarial case at frames of ``h`` x ``w`` (the ragged cases
     use 37x33, 1 x ``w`` and ``h`` x 1)."""
@@ -138,6 +161,7 @@ def hysteresis_cases(h: int, w: int, seed: int = 0):
     for name, shape in (("ragged_37x33", (37, 33)), ("ragged_1xW", (1, w)),
                         ("ragged_Hx1", (h, 1))):
         cases.append((name, *random_masks(rng, (2, *shape), 0.6, 0.05)))
+    cases.append(("crease_bands", *one(*_crease_bands(rng, h, w))))
     return cases
 
 

@@ -72,6 +72,20 @@ def shift2d(img: torch.Tensor, dr: int, dc: int, fill=0.0) -> torch.Tensor:
     return out
 
 
+def shift_hw(img: torch.Tensor, dr: int, dc: int, fill=0.0) -> torch.Tensor:
+    """``out[..., r, c] = img[..., r + dr, c + dc]`` on the LAST two axes
+    (``[..., H, W]`` stacks of frames, where :func:`shift2d` would shift
+    across frames); out-of-range pixels take ``fill``."""
+    h, w = img.shape[-2:]
+    out = torch.full_like(img, fill)
+    if abs(dr) >= h or abs(dc) >= w:
+        return out
+    out[..., max(-dr, 0):h - max(dr, 0), max(-dc, 0):w - max(dc, 0)] = img[
+        ..., max(dr, 0):h - max(-dr, 0), max(dc, 0):w - max(-dc, 0)
+    ]
+    return out
+
+
 def gaussian_kernel_3x3(sigma: float = 1.0) -> np.ndarray:
     ax = np.arange(-1, 2, dtype=np.float64)
     g = np.exp(-(ax**2) / (2 * sigma**2))

@@ -1,7 +1,7 @@
-"""Anchor refinement against frame 0 (port of
-``rspc_tpu/registration/anchor.py::_anchor_refine``). The progressive map
-anchor, the pose graph and the in-chain refine step are not ported yet
-(ROADMAP.md Queue A)."""
+"""Refinement stages (port of ``rspc_tpu/registration/anchor.py``): the
+per-pair full-cloud refine of the chain and the loop path, and the
+anchor refinement against frame 0. The progressive map anchor and the
+pose graph are not ported yet (ROADMAP.md Queue A: robust_config)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,35 @@ import torch
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.ops.transform import apply_transform, apply_transform_cloud
 from rspc_tpu_torch.ops.umeyama import plane_fit
-from rspc_tpu_torch.registration.icp import _trust_region
-from rspc_tpu_torch.registration.measures import _nn_sweep
+from rspc_tpu_torch.registration.icp import _trust_region, icp_align
+from rspc_tpu_torch.registration.measures import _capped_mean_sq, _nn_sweep
+
+
+def _run_stages(target_full: Cloud, src_t: Cloud, stages):
+    """The annealed point-to-plane stage schedule; returns (the last
+    stage's result, the relative transform, the final aligned cloud)."""
+    cur = src_t
+    rel = torch.eye(4, dtype=src_t.xyz.dtype, device=src_t.device)
+    res = None
+    for stage_cfg in stages:
+        res = icp_align(cur, target_full, stage_cfg)
+        cur = apply_transform_cloud(res.transform, cur)
+        rel = res.transform @ rel
+    return res, rel, cur
+
+
+def _refine_step(target_full: Cloud, src_full: Cloud, base_t, stages, margin):
+    """Full-cloud point-to-plane refinement (RefineConfig) against the
+    accumulated surface from ``base_t``. The refined transform is kept
+    only if it improves the capped NN score by ``margin``. Returns (the
+    last stage's result, accepted bool, the total transform)."""
+    src_t = apply_transform_cloud(base_t, src_full)
+    res, rel, cur = _run_stages(target_full, src_t, stages)
+    cap = stages[-1].max_correspondence_distance * 2.0
+    before = _capped_mean_sq(src_t, target_full, cap)
+    after = _capped_mean_sq(cur, target_full, cap)
+    accepted = after <= before * margin
+    return res, accepted, torch.where(accepted, rel @ base_t, base_t)
 
 
 def _anchor_refine(

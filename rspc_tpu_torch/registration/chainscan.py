@@ -2,16 +2,18 @@
 ``rspc_tpu/registration/chainscan.py``).
 
 ``_registration_fused`` runs the whole registration: phase 1 (normals,
-RGB Canny with one batched hysteresis, edge compaction, the refine
-clouds' voxel means), the frame chain (voxel downsample, incremental NDT
-coarse, the coarse guard, fine ICP, ``merge_append``), the anchor
-refinement against frame 0 and the global cloud. The JAX ``lax.scan``
-over frames becomes a Python loop; the per-frame convergence gate folds
-into the merge scatters, so no host sync decides a merge.
+the edge labels with one batched hysteresis per Canny class, edge
+compaction, the refine clouds' voxel means), the frame chain (voxel
+downsample; NDT coarse against the incremental moment grid or coarse
+ICP against the accumulated target; the coarse guard; fine ICP; the
+in-chain refine; ``merge_append``), the anchor refinement against frame
+0 and the global cloud. The JAX ``lax.scan`` over frames becomes a
+Python loop; the per-frame convergence gate folds into the merge
+scatters, so no host sync decides a merge.
 
-Not ported yet (ROADMAP.md Queue A): the ICP coarse stage, the warm
-start, the rescue stage, the in-chain refine, the map anchor, the pose
-graph and the sharded form.
+Not ported yet (ROADMAP.md Queue A: robust_config): the warm start, the
+rescue stage, colour, the map anchor, the pose graph; nor the sharded
+form (``parallel/*``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from rspc_tpu_torch.cloud import Cloud, OrganizedCloud
 from rspc_tpu_torch.ops.edges import extract_edge_features_batch
 from rspc_tpu_torch.ops.transform import apply_transform, apply_transform_cloud
 from rspc_tpu_torch.ops.voxel import voxel_downsample
-from rspc_tpu_torch.registration.anchor import _anchor_refine
-from rspc_tpu_torch.registration.bufferops import _stride_cloud, merge_append
+from rspc_tpu_torch.registration.anchor import _anchor_refine, _refine_step
+from rspc_tpu_torch.registration.bufferops import merge_append
 from rspc_tpu_torch.registration.icp import icp_align
 from rspc_tpu_torch.registration.ndt import (
     ndt_align,
@@ -34,7 +36,17 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_grid_origin,
     ndt_grid_update_moments,
 )
-from rspc_tpu_torch.registration.pairsteps import _GUARD_MAX_POINTS, _guard_best
+from rspc_tpu_torch.registration.pairsteps import _guarded
+
+
+def _check_refine(r) -> None:
+    """Refuse the refine options that are not ported."""
+    if r.enabled and (r.color or r.pose_graph
+                      or (r.anchor_to_first and r.anchor_mode != "first")):
+        raise NotImplementedError(
+            "colored refine clouds, the map anchor and the pose graph are "
+            "not ported yet (ROADMAP.md Queue A: robust_config)"
+        )
 
 
 def _stack(clouds):
@@ -60,15 +72,10 @@ def _prepare_full_down(oc: OrganizedCloud, normals, n_valid, leaf, cap,
     return voxel_downsample(flat, leaf, cap, min_normal_purity=purity)
 
 
-def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1,
-                    purity=0.0, color=False):
+def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1, purity=0.0):
     """Phase 1 for all frames: stacked edge clouds ``[n, edge_cap]`` and,
-    when ``with_full``, the stacked refine clouds ``[n, cap]``. The Canny
-    hysteresis of all frames is one batched call."""
-    if color:
-        raise NotImplementedError(
-            "colored refine clouds are not ported yet (ROADMAP.md Queue A)"
-        )
+    when ``with_full``, the stacked refine clouds ``[n, cap]``. Each Canny
+    class's hysteresis is one batched call over the frames."""
     feats, normals, n_valid = extract_edge_features_batch(frames, edge_cfg)
     full = None
     if with_full:
@@ -79,12 +86,19 @@ def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1,
     return _stack(feats), full
 
 
-def _chain_scan(edges_all: Cloud, guesses, ndt_cfg, icp_cfg, leaf: float,
-                voxel_cap: int, target_cap: int, coarse_guard_cap: float):
-    """The NDT frame chain: per pair, NDT coarse against the incremental
-    moment grid from the guess, the never-worsen guard, fine ICP on the
-    accumulated edge target, then the gated merges."""
+def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
+                icp_cfg, refine_stages, leaf: float, voxel_cap: int,
+                target_cap: int, refine_target_cap: int,
+                coarse_guard_cap: float, refine_margin: float = 0.75):
+    """The frame chain over stacked edge clouds ``[n, edge_cap]``: per
+    pair, the coarse stage from the guess (NDT against the incremental
+    moment grid, or ICP against the accumulated target without its
+    fitness sweep), the never-worsen guard, fine ICP on the accumulated
+    edge target, the refine against the accumulated full clouds when
+    ``full_all`` (stacked ``[n, full_cap]``) is given, then the gated
+    merges."""
     n = edges_all.valid.shape[0]
+    refine = full_all is not None
     edges_down = [
         voxel_downsample(edges_all.map(lambda x: x[i]), leaf, voxel_cap)
         for i in range(n)
@@ -95,32 +109,46 @@ def _chain_scan(edges_all: Cloud, guesses, ndt_cfg, icp_cfg, leaf: float,
                     with_normal=target0.normal is not None),
         target0,
     )
-    origin = ndt_grid_origin(target0, ndt_cfg)
-    moments = ndt_grid_update_moments(
-        ndt_grid_init(origin, ndt_cfg).moments, origin, target0, ndt_cfg
-    )
-    coarse_s, fine_s, totals = [], [], []
+    if use_ndt:
+        # the incremental dense grid: frame 0's moments, then each
+        # converged frame's aligned edges added (moments are additive)
+        origin = ndt_grid_origin(target0, ndt_cfg)
+        moments = ndt_grid_update_moments(
+            ndt_grid_init(origin, ndt_cfg).moments, origin, target0, ndt_cfg
+        )
+    if refine:
+        target_full = merge_append(
+            Cloud.empty(refine_target_cap, target0.device, with_normal=True),
+            full_all.map(lambda x: x[0]),
+        )
+    coarse_icp_cfg = dataclasses.replace(icp_cfg, compute_fitness=False)
+    coarse_s, fine_s, ref_s, totals = [], [], [], []
     for i in range(1, n):
         edge_i, guess = edges_down[i], guesses[i - 1]
-        grid = ndt_grid_from_moments(moments, origin, ndt_cfg)
-        coarse = ndt_align(edge_i, grid, ndt_cfg, guess)
-        if coarse_guard_cap > 0.0:
-            coarse = dataclasses.replace(
-                coarse,
-                transform=_guard_best(
-                    [coarse.transform, guess],
-                    _stride_cloud(edge_i, _GUARD_MAX_POINTS),
-                    target, coarse_guard_cap,
-                ),
-            )
+        if use_ndt:
+            grid = ndt_grid_from_moments(moments, origin, ndt_cfg)
+            coarse = ndt_align(edge_i, grid, ndt_cfg, guess)
+        else:
+            coarse = icp_align(edge_i, target, coarse_icp_cfg, guess)
+        coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap)
         aligned = apply_transform_cloud(coarse.transform, edge_i)
         fine = icp_align(aligned, target, icp_cfg)
         total = fine.transform @ coarse.transform
+        if refine:
+            full_i = full_all.map(lambda x: x[i])
+            ref, _, total = _refine_step(target_full, full_i, total,
+                                         refine_stages, refine_margin)
+            ref_s.append(ref)
         conv = fine.converged
         edge_total = apply_transform_cloud(total, edge_i)
         target = merge_append(target, edge_total, gate=conv)
-        moments = ndt_grid_update_moments(moments, origin, edge_total, ndt_cfg,
-                                          gate=conv)
+        if use_ndt:
+            moments = ndt_grid_update_moments(moments, origin, edge_total, ndt_cfg,
+                                              gate=conv)
+        if refine:
+            target_full = merge_append(
+                target_full, apply_transform_cloud(total, full_i), gate=conv
+            )
         coarse_s.append(coarse)
         fine_s.append(fine)
         totals.append(total)
@@ -128,37 +156,59 @@ def _chain_scan(edges_all: Cloud, guesses, ndt_cfg, icp_cfg, leaf: float,
         "target": target,
         "coarse": coarse_s,
         "fine": fine_s,
+        "refine": ref_s,
         "totals": torch.stack(totals),
         "edges_down0": target0,
     }
 
 
+def _anchor_first(full_all: Cloud, totals, r):
+    """The anchor refinement against frame 0 of stacked refine clouds
+    ``[n, full_cap]``: (totals, accepted)."""
+    return _anchor_refine(
+        full_all.map(lambda x: x[0]), full_all.map(lambda x: x[1:]), totals,
+        r.anchor_stages, 1.0, r.gate_radius, r.gate_inlier_keep,
+        r.gate_rmse_blowup, max_points=r.anchor_max_points,
+    )
+
+
+def _assemble_global(originals, totals, converged) -> Cloud:
+    """The global cloud from per-frame originals (unorganized clouds) and
+    their transforms into frame 0, each frame gated by ``converged``
+    (frame 0 always kept)."""
+    eye = torch.eye(4, dtype=totals.dtype, device=totals.device)
+    all_t = torch.cat([eye[None], totals], dim=0)
+    conv_all = torch.cat([torch.ones_like(converged[:1]), converged])
+    moved = [apply_transform_cloud(all_t[i], c) for i, c in enumerate(originals)]
+    return Cloud(
+        xyz=torch.cat([m.xyz for m in moved], dim=0),
+        rgb=torch.cat([m.rgb for m in moved], dim=0),
+        valid=torch.cat([m.valid & conv_all[i] for i, m in enumerate(moved)], dim=0),
+    )
+
+
 def _registration_fused(stacked: OrganizedCloud, frames, guesses, edge_cfg,
-                        ndt_cfg, icp_cfg, refine_cfg, leaf: float,
+                        use_ndt: bool, ndt_cfg, icp_cfg, refine_cfg, leaf: float,
                         voxel_cap: int, coarse_guard_cap: float):
     """The whole registration: phase 1, the frame chain, the anchor
     refinement and the global cloud. ``frames`` are the per-frame
-    ``OrganizedCloud``s, ``stacked`` the same frames stacked ``[n, H, W]``."""
+    ``OrganizedCloud``s, ``stacked`` the same frames stacked ``[n, H, W]``.
+    The chain refines in place only under ``refine_cfg.chain``."""
     r = refine_cfg
-    if r.enabled and (r.chain or r.pose_graph or r.anchor_mode != "first"):
-        raise NotImplementedError(
-            "only the anchor-to-first refine is ported (ROADMAP.md Queue A)"
-        )
+    _check_refine(r)
     n = len(frames)
     feats, full = _phase1_prepare(
         frames, edge_cfg, r.leaf_size, r.max_points, r.enabled, r.decimate,
-        r.normal_purity, r.color,
+        r.normal_purity,
     )
-    out = _chain_scan(feats, guesses, ndt_cfg, icp_cfg, leaf, voxel_cap,
-                      voxel_cap * n, coarse_guard_cap)
+    out = _chain_scan(feats, full if (r.enabled and r.chain) else None, guesses,
+                      use_ndt, ndt_cfg, icp_cfg, r.stages, leaf, voxel_cap,
+                      voxel_cap * n, r.max_points * n, coarse_guard_cap,
+                      r.accept_margin)
     totals = out["totals"]
     accepted = None
     if r.enabled and r.anchor_to_first:
-        totals, accepted = _anchor_refine(
-            full.map(lambda x: x[0]), full.map(lambda x: x[1:]), totals,
-            r.anchor_stages, 1.0, r.gate_radius, r.gate_inlier_keep,
-            r.gate_rmse_blowup, max_points=r.anchor_max_points,
-        )
+        totals, accepted = _anchor_first(full, totals, r)
     out["totals"] = totals
     out["anchor_accepted"] = accepted
     out["features"] = feats

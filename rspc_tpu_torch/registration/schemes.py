@@ -1,35 +1,69 @@
-"""Registration schemes (port of ``rspc_tpu/registration/schemes.py``):
+"""Registration schemes (port of ``rspc_tpu/registration/schemes.py``),
+after the reference's Strategy / template-method design
+(src/types.hpp:14-44):
 
-  * ``NDTEdgeBasedRegistration`` -- NDT coarse + ICP fine on RGB-edge
-    clouds, chained incrementally over a frame sequence, with the static
-    per-frame yaw guesses -- on the fused path;
+  * ``TwoPhaseRegistrationScheme`` -- phase 1 ``extract_features`` per
+    cloud, phase 2 ``global_registration``;
+  * ``ICPEdgeBasedRegistration`` -- coarse ICP + fine ICP on RGB-edge
+    clouds with IMU or static guesses, writing ``edge-{i}.pcd`` and
+    ``edge_cloud.pcd`` beside it (``--all``; reference C4);
+  * ``NDTEdgeBasedRegistration`` -- NDT coarse + fine ICP on RGB-edge
+    clouds (``--registration``; reference C5);
   * ``IncrementalICP`` -- guess-free ICP of each full cloud against the
-    accumulated target (both the scan path and the ``use_scan=False``
-    loop path).
+    accumulated target (reference C3).
 
-Not ported yet (ROADMAP.md Queue A): IMU guesses (``thetas``), the
-edge schemes' per-frame loop path (``use_scan=False``) and
-``ICPEdgeBasedRegistration``.
+The edge schemes run organized frames of one shape through the fused
+path (``chainscan.py::_registration_fused``: convergence gates fold into
+the merges, no host sync decides one) and anything else, or every input
+under ``PipelineConfig.use_scan=False``, through the per-frame loop,
+whose merges read ``bool(fine.converged)`` (one host sync per pair).
+
+Reference quirks kept (SURVEY.md section 7): the stored edge cloud of
+frame 0 is voxel-downsampled in place, so ``edge-0.pcd`` holds the
+downsampled cloud; IMU thetas are rebased by -theta_0 (theta_0 itself
+is not); the static-guess accumulator advances for every frame,
+converged or not; the ICP scheme's IMU guess maps all three axes, the
+NDT scheme's only -theta.y. And one of the JAX package's own: the loop
+path refines every pair whenever ``refine.enabled``, the fused path only
+under ``refine.chain`` (ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rspc_tpu_torch.cloud import Cloud, OrganizedCloud
 from rspc_tpu_torch.config import PipelineConfig
+from rspc_tpu_torch.ops.edges import extract_edge_features
+from rspc_tpu_torch.ops.normals import estimate_normals
 from rspc_tpu_torch.ops.transform import apply_transform_cloud
 from rspc_tpu_torch.ops.voxel import voxel_downsample
+from rspc_tpu_torch.registration.anchor import _refine_step
 from rspc_tpu_torch.registration.bufferops import (
     _as_unorganized,
     _block_append,
     merge_append,
 )
-from rspc_tpu_torch.registration.chainscan import _registration_fused, _stack
+from rspc_tpu_torch.registration.chainscan import (
+    _anchor_first,
+    _assemble_global,
+    _chain_scan,
+    _check_refine,
+    _phase1_prepare,
+    _prepare_full_down,
+    _registration_fused,
+    _stack,
+)
 from rspc_tpu_torch.registration.icp import ICPResult, icp_align
+from rspc_tpu_torch.registration.pairsteps import (
+    _icp_pair_step,
+    _imu_guesses,
+    _ndt_pair_step,
+)
 
 
 class RegistrationScheme:
@@ -39,65 +73,160 @@ class RegistrationScheme:
         raise NotImplementedError
 
 
-class NDTEdgeBasedRegistration(RegistrationScheme):
-    """NDT coarse + ICP refine on edge clouds
-    (src/ndt_edge_based_registration.hpp), on the fused path."""
+class TwoPhaseRegistrationScheme(RegistrationScheme):
+    """Template method: extract features per cloud, then register them
+    globally (reference: src/types.hpp:22-44)."""
+
+    def extract_features(self, cloud):
+        raise NotImplementedError
+
+    def global_registration(self, clouds: List[Tuple[Cloud, Cloud]]) -> Cloud:
+        raise NotImplementedError
+
+    def batch_extract_features(self, clouds: Sequence):
+        """Optional phase-1 fast path: the feature clouds of all inputs at
+        once (None: the per-cloud loop)."""
+        return None
+
+    def registration(self, clouds: Sequence) -> Cloud:
+        features = self.batch_extract_features(clouds)
+        if features is None:
+            features = [self.extract_features(c) for c in clouds]
+        return self.global_registration(
+            [(f, _as_unorganized(c)) for f, c in zip(features, clouds)]
+        )
+
+
+def _uniform_organized(clouds) -> bool:
+    return (len(clouds) >= 2
+            and all(isinstance(c, OrganizedCloud) for c in clouds)
+            and len({(c.height, c.width) for c in clouds}) == 1)
+
+
+class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
+    """The skeleton shared by the ICP- and NDT-based edge schemes. The
+    constructor overloads mirror the reference: no guess (the static
+    ``config.default_rads`` per frame), IMU ``thetas`` (``[n, 3]``, one
+    per frame) or a user ``rads``. ``results`` holds one ``(coarse,
+    fine)`` pair per registered frame, ``total_transforms`` the
+    ``[n-1, 4, 4]`` transforms of frames 1..n-1 into frame 0."""
+
+    use_ndt_coarse = False
+    saves_edge_pcds = False
 
     def __init__(
         self,
-        thetas: Optional[np.ndarray] = None,
+        thetas=None,
         rads: Optional[float] = None,
         config: PipelineConfig = PipelineConfig(),
+        dataset_dir: Optional[str] = None,
     ):
-        if thetas is not None:
-            raise NotImplementedError(
-                "IMU guesses are not ported yet (ROADMAP.md Queue A)"
-            )
         self.config = config
+        self.use_imu = thetas is not None
+        self.thetas = (None if thetas is None
+                       else torch.as_tensor(thetas, dtype=torch.float32))
         self.rads = float(rads) if rads is not None else config.default_rads
-        self.total_transforms = None  # [n-1,4,4] composed per-frame transforms
+        self.dataset_dir = dataset_dir
+        self.results: List[Tuple[object, ICPResult]] = []
+        self.refine_results: List[ICPResult] = []
+        self.total_transforms = None
         self.anchor_accepted = None
+        self._full_down: Optional[List[Cloud]] = None
         self._out = None
 
-    def registration(self, clouds: Sequence[OrganizedCloud]) -> Cloud:
-        """Register organized frames of one shape (on any one device);
-        returns the global cloud. Frame i's transform into frame 0 is
-        ``total_transforms[i - 1]``."""
+    def _check_ported(self) -> None:
         cfg = self.config
-        if not cfg.use_scan:
+        _check_refine(cfg.refine)
+        if cfg.coarse_warm_start or cfg.rescue_inlier_frac > 0.0:
             raise NotImplementedError(
-                "the per-frame loop path is not ported yet (ROADMAP.md Queue A)"
+                "the warm start and the rescue stage are not ported yet "
+                "(ROADMAP.md Queue A: robust_config)"
             )
-        if (len(clouds) < 2
-                or not all(isinstance(c, OrganizedCloud) for c in clouds)
-                or len({(c.height, c.width) for c in clouds}) != 1):
+
+    def registration(self, clouds: Sequence) -> Cloud:
+        cfg = self.config
+        r = cfg.refine
+        self._check_ported()
+        self._full_down = None
+        self.anchor_accepted = None
+        organized = all(isinstance(c, OrganizedCloud) for c in clouds)
+        if r.enabled and not organized:
             raise ValueError(
-                "registration needs >= 2 organized clouds of one shape"
+                "the refine stage needs organized input clouds "
+                "(normal estimation is image-shaped)"
             )
+        if cfg.use_scan and _uniform_organized(clouds):
+            return self._registration_fused_path(clouds)
+        features = self.batch_extract_features(clouds)
+        if features is None:
+            features = [self.extract_features(c) for c in clouds]
+        if r.enabled and self._full_down is None:
+            self._full_down = [
+                _prepare_full_down(c, *estimate_normals(c, cfg.edge), r.leaf_size,
+                                   r.max_points, r.decimate, r.normal_purity)
+                for c in clouds
+            ]
+        return self.global_registration(
+            [(f, _as_unorganized(c)) for f, c in zip(features, clouds)]
+        )
+
+    def _registration_fused_path(self, clouds: Sequence) -> Cloud:
+        """Organized frames of one shape: the whole pipeline in
+        ``_registration_fused``."""
+        cfg = self.config
         n = len(clouds)
         stacked = _stack([OrganizedCloud(c.xyz, c.rgb, c.valid) for c in clouds])
         out = _registration_fused(
             stacked, list(clouds), self._guesses(n, stacked.device), cfg.edge,
-            cfg.ndt, cfg.icp, cfg.refine, cfg.voxel.leaf_size,
-            cfg.voxel.max_points, cfg.coarse_guard_cap,
+            self.use_ndt_coarse, cfg.ndt, cfg.icp, cfg.refine,
+            cfg.voxel.leaf_size, cfg.voxel.max_points, cfg.coarse_guard_cap,
         )
         self._out = out
+        self.results = list(zip(out["coarse"], out["fine"]))
+        self.refine_results = out["refine"]
         self.total_transforms = out["totals"]
         self.anchor_accepted = out["anchor_accepted"]
+        self._dump_edges(
+            [out["edges_down0"]]
+            + [out["features"].map(lambda x: x[i]) for i in range(1, n)],
+            out["target"],
+        )
         return out["global"]
 
-    @property
-    def results(self):
-        """[(coarse, fine)] per registered pair, PCL-parity result
-        bundles (``NDTResult``, ``ICPResult``)."""
-        if self._out is None:
-            return []
-        return list(zip(self._out["coarse"], self._out["fine"]))
+    def extract_features(self, cloud):
+        if not isinstance(cloud, OrganizedCloud):
+            raise ValueError(
+                "edge-based registration needs organized clouds "
+                "(PCL OrganizedEdgeFromRGBNormals requires an organized input)"
+            )
+        return extract_edge_features(cloud, self.config.edge)
+
+    def batch_extract_features(self, clouds):
+        """Phase 1 for organized frames of one shape, labelled together;
+        with the refine stage on, the refine clouds come from the same
+        normal images (kept for phase 2)."""
+        if not _uniform_organized(clouds):
+            return None
+        r = self.config.refine
+        feats, full = _phase1_prepare(
+            list(clouds), self.config.edge, r.leaf_size, r.max_points, r.enabled,
+            r.decimate, r.normal_purity,
+        )
+        if r.enabled:
+            self._full_down = [full.map(lambda x: x[i]) for i in range(len(clouds))]
+        return [feats.map(lambda x: x[i]) for i in range(len(clouds))]
 
     def _guesses(self, n: int, device) -> torch.Tensor:
-        """Stacked [n-1,4,4] static accumulated y-rotation guesses (the
-        accumulator advances for every frame, converged or not),
-        built host-side in numpy."""
+        """Stacked ``[n-1, 4, 4]`` initial guesses. The static accumulator
+        advances for every frame, converged or not (reference :98-101), so
+        all guesses exist up front: static ones built host-side in numpy
+        (float64 angles), IMU ones from the rebased thetas on ``device``."""
+        if self.use_imu:
+            if self.thetas.shape[0] != n:
+                raise ValueError(
+                    f"{self.thetas.shape[0]} thetas for {n} clouds"
+                )
+            return _imu_guesses(self.thetas.to(device), self.use_ndt_coarse)
         acc = self.rads * np.arange(1, n, dtype=np.float64)
         c, s = np.cos(acc), np.sin(acc)
         t = np.tile(np.eye(4, dtype=np.float32), (n - 1, 1, 1))
@@ -106,6 +235,168 @@ class NDTEdgeBasedRegistration(RegistrationScheme):
         t[:, 2, 0] = -s
         t[:, 2, 2] = c
         return torch.from_numpy(t).to(device)
+
+    def _dump_edges(self, edges: List[Cloud], target: Optional[Cloud]) -> None:
+        """``edge-{i}.pcd`` per frame and ``edge_cloud.pcd`` (the
+        accumulated edge target) into ``dataset_dir``, valid points only
+        (icp_edge_based_registration.hpp:66-69,126)."""
+        if not (self.saves_edge_pcds and self.dataset_dir is not None):
+            return
+        from rspc_tpu_torch.io.pcd import save_pcd
+
+        os.makedirs(self.dataset_dir, exist_ok=True)
+        for i, e in enumerate(edges):
+            save_pcd(os.path.join(self.dataset_dir, f"edge-{i}.pcd"), e,
+                     keep_invalid=False)
+        if target is not None:
+            save_pcd(os.path.join(self.dataset_dir, "edge_cloud.pcd"), target,
+                     keep_invalid=False)
+
+    def global_registration(self, clouds: List[Tuple[Cloud, Cloud]]) -> Cloud:
+        """Phase 2 over (edge cloud, original cloud) pairs: the chain of
+        ``_chain_scan`` when ``use_scan`` and the clouds are uniform, else
+        the per-frame loop."""
+        cfg = self.config
+        self._check_ported()
+        edges = [c[0] for c in clouds]
+        originals = [c[1] for c in clouds]
+        uniform = (
+            len(clouds) >= 2
+            and len({e.capacity for e in edges}) == 1
+            and len({o.capacity for o in originals}) == 1
+            and len({e.normal is None for e in edges}) == 1
+        )
+        if cfg.use_scan and uniform:
+            return self._global_registration_scan(edges, originals)
+        return self._global_registration_loop(edges, originals)
+
+    def _anchor(self, totals):
+        """The anchor refinement against frame 0 when the config asks for
+        it: (totals, accepted or None)."""
+        r = self.config.refine
+        if not (r.enabled and r.anchor_to_first):
+            return totals, None
+        return _anchor_first(_stack(self._full_down), totals, r)
+
+    def _global_registration_scan(self, edges: List[Cloud],
+                                  originals: List[Cloud]) -> Cloud:
+        cfg = self.config
+        r = cfg.refine
+        n = len(edges)
+        out = _chain_scan(
+            _stack(edges),
+            _stack(self._full_down) if (r.enabled and r.chain) else None,
+            self._guesses(n, edges[0].device), self.use_ndt_coarse, cfg.ndt,
+            cfg.icp, r.stages, cfg.voxel.leaf_size, cfg.voxel.max_points,
+            cfg.voxel.max_points * n, r.max_points * n, cfg.coarse_guard_cap,
+            r.accept_margin,
+        )
+        self._out = out
+        self.results = list(zip(out["coarse"], out["fine"]))
+        self.refine_results = out["refine"]
+        totals, self.anchor_accepted = self._anchor(out["totals"])
+        self.total_transforms = totals
+        self._dump_edges([out["edges_down0"]] + list(edges[1:]), out["target"])
+        merge_ok = torch.stack([f.converged for f in out["fine"]])
+        if self.anchor_accepted is not None:
+            # anchor-accepted frames are verified against frame 0: merged
+            # even where the fine edge ICP did not converge
+            merge_ok = merge_ok | self.anchor_accepted
+        return _assemble_global(originals, totals, merge_ok)
+
+    def _global_registration_loop(self, edges: List[Cloud],
+                                  originals: List[Cloud]) -> Cloud:
+        """The per-frame loop (``use_scan=False``): one pair step at a
+        time, each merge decided on the host by ``bool(fine.converged)``."""
+        cfg = self.config
+        r = cfg.refine
+        n = len(edges)
+        dev = edges[0].device
+        voxel_cap = cfg.voxel.max_points
+        guesses = self._guesses(n, dev)
+
+        # frame 0's edges are downsampled IN PLACE in the reference, so
+        # edge-0.pcd holds the downsampled cloud
+        target0 = voxel_downsample(edges[0], cfg.voxel.leaf_size, voxel_cap)
+        target = merge_append(
+            Cloud.empty(voxel_cap * n, dev, with_normal=target0.normal is not None),
+            target0,
+        )
+        global_cloud = merge_append(
+            Cloud.empty(sum(o.capacity for o in originals), dev), originals[0]
+        )
+        edges = [target0] + list(edges[1:])
+        if r.enabled:
+            target_full = merge_append(
+                Cloud.empty(r.max_points * n, dev, with_normal=True),
+                self._full_down[0],
+            )
+        self._dump_edges(edges, None)
+
+        self.results, self.refine_results, totals = [], [], []
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        for idx in range(1, n):
+            guess = guesses[idx - 1]
+            if self.use_ndt_coarse:
+                coarse, fine, fine_aligned = _ndt_pair_step(
+                    target, edges[idx], guess, cfg.ndt, cfg.icp,
+                    cfg.voxel.leaf_size, voxel_cap, cfg.coarse_guard_cap,
+                )
+            else:
+                coarse, fine, fine_aligned = _icp_pair_step(
+                    target, edges[idx], guess, cfg.icp, cfg.voxel.leaf_size,
+                    voxel_cap, cfg.coarse_guard_cap,
+                )
+            self.results.append((coarse, fine))
+            total = fine.transform @ coarse.transform
+            if r.enabled:
+                ref, accepted, total = _refine_step(
+                    target_full, self._full_down[idx], total, r.stages,
+                    r.accept_margin,
+                )
+                self.refine_results.append(ref)
+                # the last stage's increment only, as the JAX package does
+                delta = torch.where(accepted, ref.transform, eye)
+                fine_aligned = apply_transform_cloud(delta, fine_aligned)
+            totals.append(total)
+            if bool(fine.converged):  # host sync: the loop path's merge test
+                target = merge_append(target, fine_aligned)
+                if r.enabled:
+                    target_full = merge_append(
+                        target_full, apply_transform_cloud(total, self._full_down[idx])
+                    )
+                global_cloud = merge_append(
+                    global_cloud, apply_transform_cloud(total, originals[idx])
+                )
+
+        totals_arr = torch.stack(totals) if totals else None
+        if totals_arr is not None:
+            totals_arr, self.anchor_accepted = self._anchor(totals_arr)
+        self.total_transforms = totals_arr
+        self._dump_edges([], target)
+        if self.anchor_accepted is not None:
+            # the anchored transforms supersede the in-loop merges
+            conv = torch.tensor([bool(f.converged) for _, f in self.results],
+                                device=dev)
+            return _assemble_global(originals, totals_arr, conv | self.anchor_accepted)
+        return global_cloud
+
+
+class ICPEdgeBasedRegistration(_EdgeBasedRegistration):
+    """Coarse ICP + fine ICP on RGB-edge clouds; ``--all`` (reference C4).
+    Writes ``edge-{i}.pcd`` and ``edge_cloud.pcd`` when given a
+    ``dataset_dir`` (icp_edge_based_registration.hpp:66-69,126)."""
+
+    use_ndt_coarse = False
+    saves_edge_pcds = True
+
+
+class NDTEdgeBasedRegistration(_EdgeBasedRegistration):
+    """NDT coarse + fine ICP on RGB-edge clouds; ``--registration``
+    (reference C5). Writes no edge clouds."""
+
+    use_ndt_coarse = True
+    saves_edge_pcds = False
 
 
 def _incremental_step(target: Cloud, cloud: Cloud, icp_cfg, leaf: float,

@@ -263,5 +263,7 @@ def test_edge_masks_feed_the_batched_hysteresis(frame):
 
 
 def test_unported_edge_classes_raise(frame):
+    """All five label classes are ported; colour gradients on the edge
+    cloud (``carry_cgrad``) are not."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract_edge_features(_port_cloud(frame), EdgeConfig())
+        extract_edge_features(_port_cloud(frame), EdgeConfig(carry_cgrad=True))

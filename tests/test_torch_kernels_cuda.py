@@ -245,3 +245,25 @@ def test_hysteresis_kernel_repeats_its_bits(dev):
     assert all(torch.equal(first[i], first[0]) for i in range(8))
     for _ in range(20):
         assert torch.equal(hysteresis_cuda(strong, weak), first)
+
+
+@pytest.mark.parametrize("hc", [(0.4, 1.1), (0.05, 0.1)])
+def test_hysteresis_kernel_on_high_curvature_masks(dev, hc):
+    """The masks the 5-class labeler hands B3 for HIGH_CURVATURE (Canny on
+    the normal image of 10 center-cropped rendered frames), at the default
+    thresholds (weak creases without a strong pixel: a unit normal's
+    (nx, ny) never passes 1.1) and at thresholds that light the class,
+    against the plain version."""
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
+    from rspc_tpu_torch.ops.canny import canny_from_gradients_masks
+    from rspc_tpu_torch.ops.deproject import Intrinsics
+    from rspc_tpu_torch.ops.normals import estimate_normals
+
+    seq = SyntheticSequence(n_frames=10, yaw_step=-0.08, intr=Intrinsics.simple(640, 480))
+    est = [estimate_normals(c) for c in seq.clouds(device=dev, center_crop=True)]
+    nrm = torch.stack([e[0] for e in est])
+    strong, weak = canny_from_gradients_masks(
+        nrm[..., 0], nrm[..., 1], *hc, valid=torch.stack([e[1] for e in est]))
+    assert strong.shape == (10, 288, 384)
+    assert bool(weak.any()) and bool(strong.any()) == (hc != (0.4, 1.1))
+    _hysteresis_vs_plain(strong.contiguous(), weak.contiguous())
