@@ -1,15 +1,17 @@
 """Phase-1 preparation and the fused frame chain (port of
 ``rspc_tpu/registration/chainscan.py``).
 
-``_registration_fused`` runs the whole registration: phase 1 (normals,
-the edge labels with one batched hysteresis per Canny class, edge
-compaction, the refine clouds' voxel means), the frame chain (voxel
+``_phase1_prepare`` is phase 1 for stacked frames (normals, the edge
+labels with one batched hysteresis per Canny class, edge compaction,
+the refine clouds' voxel means); ``_chain_scan`` the frame chain (voxel
 downsample; NDT coarse against the incremental moment grid or coarse
 ICP against the accumulated target; the coarse guard; fine ICP; the
-in-chain refine; ``merge_append``), the anchor refinement against frame
-0 and the global cloud. The JAX ``lax.scan`` over frames becomes a
-Python loop; the per-frame convergence gate folds into the merge
-scatters, so no host sync decides a merge.
+in-chain refine; ``merge_append``); ``_anchor_first`` the anchor
+refinement against frame 0 and ``_assemble_global`` the global cloud.
+The schemes (``schemes.py``) call them in that order. The JAX
+``lax.scan`` over frames becomes a Python loop; the per-frame
+convergence gate folds into the merge scatters, so no host sync decides
+a merge.
 
 Not ported yet (ROADMAP.md Queue A: robust_config): the warm start, the
 rescue stage, colour, the map anchor, the pose graph; nor the sharded
@@ -24,7 +26,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud, OrganizedCloud
 from rspc_tpu_torch.ops.edges import extract_edge_features_batch
-from rspc_tpu_torch.ops.transform import apply_transform, apply_transform_cloud
+from rspc_tpu_torch.ops.transform import apply_transform_cloud
 from rspc_tpu_torch.ops.voxel import voxel_downsample
 from rspc_tpu_torch.registration.anchor import _anchor_refine, _refine_step
 from rspc_tpu_torch.registration.bufferops import merge_append
@@ -186,47 +188,3 @@ def _assemble_global(originals, totals, converged) -> Cloud:
         valid=torch.cat([m.valid & conv_all[i] for i, m in enumerate(moved)], dim=0),
     )
 
-
-def _registration_fused(stacked: OrganizedCloud, frames, guesses, edge_cfg,
-                        use_ndt: bool, ndt_cfg, icp_cfg, refine_cfg, leaf: float,
-                        voxel_cap: int, coarse_guard_cap: float):
-    """The whole registration: phase 1, the frame chain, the anchor
-    refinement and the global cloud. ``frames`` are the per-frame
-    ``OrganizedCloud``s, ``stacked`` the same frames stacked ``[n, H, W]``.
-    The chain refines in place only under ``refine_cfg.chain``."""
-    r = refine_cfg
-    _check_refine(r)
-    n = len(frames)
-    feats, full = _phase1_prepare(
-        frames, edge_cfg, r.leaf_size, r.max_points, r.enabled, r.decimate,
-        r.normal_purity,
-    )
-    out = _chain_scan(feats, full if (r.enabled and r.chain) else None, guesses,
-                      use_ndt, ndt_cfg, icp_cfg, r.stages, leaf, voxel_cap,
-                      voxel_cap * n, r.max_points * n, coarse_guard_cap,
-                      r.accept_margin)
-    totals = out["totals"]
-    accepted = None
-    if r.enabled and r.anchor_to_first:
-        totals, accepted = _anchor_first(full, totals, r)
-    out["totals"] = totals
-    out["anchor_accepted"] = accepted
-    out["features"] = feats
-    out["full_down"] = full
-
-    # global cloud: one batched transform of the stacked originals, gated
-    # per frame by convergence (or by the anchor gate's acceptance)
-    merge_ok = torch.stack([f.converged for f in out["fine"]])
-    if accepted is not None:
-        merge_ok = merge_ok | accepted
-    hw = stacked.height * stacked.width
-    eye = torch.eye(4, dtype=totals.dtype, device=totals.device)
-    all_t = torch.cat([eye[None], totals], dim=0)
-    conv_all = torch.cat([torch.ones_like(merge_ok[:1]), merge_ok])
-    xyz = apply_transform(all_t, stacked.xyz.reshape(n, hw, 3))
-    out["global"] = Cloud(
-        xyz=xyz.reshape(n * hw, 3),
-        rgb=stacked.rgb.reshape(n * hw, 3),
-        valid=(stacked.valid.reshape(n, hw) & conv_all[:, None]).reshape(n * hw),
-    )
-    return out

@@ -12,11 +12,12 @@ after the reference's Strategy / template-method design
   * ``IncrementalICP`` -- guess-free ICP of each full cloud against the
     accumulated target (reference C3).
 
-The edge schemes run organized frames of one shape through the fused
-path (``chainscan.py::_registration_fused``: convergence gates fold into
-the merges, no host sync decides one) and anything else, or every input
-under ``PipelineConfig.use_scan=False``, through the per-frame loop,
-whose merges read ``bool(fine.converged)`` (one host sync per pair).
+The edge schemes label organized frames of one shape in one batch, then
+run clouds of one capacity through the fused chain
+(``chainscan.py::_chain_scan``: convergence gates fold into the merges,
+no host sync decides one) and anything else, or every input under
+``PipelineConfig.use_scan=False``, through the per-frame loop, whose
+merges read ``bool(fine.converged)`` (one host sync per pair).
 
 Reference quirks kept (SURVEY.md section 7): the stored edge cloud of
 frame 0 is voxel-downsampled in place, so ``edge-0.pcd`` holds the
@@ -55,7 +56,6 @@ from rspc_tpu_torch.registration.chainscan import (
     _check_refine,
     _phase1_prepare,
     _prepare_full_down,
-    _registration_fused,
     _stack,
 )
 from rspc_tpu_torch.registration.icp import ICPResult, icp_align
@@ -144,19 +144,19 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
             )
 
     def registration(self, clouds: Sequence) -> Cloud:
+        """The template of ``TwoPhaseRegistrationScheme`` plus the refine
+        stage's clouds: phase 1 (batched for organized frames of one
+        shape), then ``global_registration``."""
         cfg = self.config
         r = cfg.refine
         self._check_ported()
         self._full_down = None
         self.anchor_accepted = None
-        organized = all(isinstance(c, OrganizedCloud) for c in clouds)
-        if r.enabled and not organized:
+        if r.enabled and not all(isinstance(c, OrganizedCloud) for c in clouds):
             raise ValueError(
                 "the refine stage needs organized input clouds "
                 "(normal estimation is image-shaped)"
             )
-        if cfg.use_scan and _uniform_organized(clouds):
-            return self._registration_fused_path(clouds)
         features = self.batch_extract_features(clouds)
         if features is None:
             features = [self.extract_features(c) for c in clouds]
@@ -169,29 +169,6 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         return self.global_registration(
             [(f, _as_unorganized(c)) for f, c in zip(features, clouds)]
         )
-
-    def _registration_fused_path(self, clouds: Sequence) -> Cloud:
-        """Organized frames of one shape: the whole pipeline in
-        ``_registration_fused``."""
-        cfg = self.config
-        n = len(clouds)
-        stacked = _stack([OrganizedCloud(c.xyz, c.rgb, c.valid) for c in clouds])
-        out = _registration_fused(
-            stacked, list(clouds), self._guesses(n, stacked.device), cfg.edge,
-            self.use_ndt_coarse, cfg.ndt, cfg.icp, cfg.refine,
-            cfg.voxel.leaf_size, cfg.voxel.max_points, cfg.coarse_guard_cap,
-        )
-        self._out = out
-        self.results = list(zip(out["coarse"], out["fine"]))
-        self.refine_results = out["refine"]
-        self.total_transforms = out["totals"]
-        self.anchor_accepted = out["anchor_accepted"]
-        self._dump_edges(
-            [out["edges_down0"]]
-            + [out["features"].map(lambda x: x[i]) for i in range(1, n)],
-            out["target"],
-        )
-        return out["global"]
 
     def extract_features(self, cloud):
         if not isinstance(cloud, OrganizedCloud):
@@ -283,14 +260,16 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         cfg = self.config
         r = cfg.refine
         n = len(edges)
+        stacked = _stack(edges)
         out = _chain_scan(
-            _stack(edges),
+            stacked,
             _stack(self._full_down) if (r.enabled and r.chain) else None,
             self._guesses(n, edges[0].device), self.use_ndt_coarse, cfg.ndt,
             cfg.icp, r.stages, cfg.voxel.leaf_size, cfg.voxel.max_points,
             cfg.voxel.max_points * n, r.max_points * n, cfg.coarse_guard_cap,
             r.accept_margin,
         )
+        out["features"] = stacked
         self._out = out
         self.results = list(zip(out["coarse"], out["fine"]))
         self.refine_results = out["refine"]

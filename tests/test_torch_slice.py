@@ -10,7 +10,13 @@ side of a half-millimetre in a few pixels); deprojected xyz atol 1e-5;
 registration totals max-abs <= 5e-4 against JAX (phase 1 differs only at
 exact NMS ties, which XLA's fused FMAs break differently; see
 test_torch_image_ops.py), the same convergence flags, and both within
-2e-2 of ground truth at this frame size."""
+2e-2 of ground truth at this frame size.
+
+The same holds for BASELINE config 3 at this size, end to end on each
+package's own phase 1 (no edge clouds swapped in): ``ICPEdgeBasedRegistration``
+with the sequence's IMU thetas under the same configuration, on the
+fused chain and on the ``use_scan=False`` loop, totals max-abs <= 5e-4
+against JAX and the same convergence and anchor flags."""
 
 import dataclasses
 
@@ -24,14 +30,19 @@ from rspc_tpu.capture.synthetic import render_frame as j_render
 from rspc_tpu.ops.deproject import Intrinsics as JIntrinsics
 from rspc_tpu.ops.deproject import rgbd_to_organized_cloud as j_deproject
 from rspc_tpu.presets import north_star_config as j_north_star
+from rspc_tpu.registration.schemes import ICPEdgeBasedRegistration as JICPReg
 from rspc_tpu.registration.schemes import NDTEdgeBasedRegistration as JReg
 from rspc_tpu_torch.capture.synthetic import SyntheticSequence, render_frame
 from rspc_tpu_torch.interop import cloud_from_numpy, config_from_dict
 from rspc_tpu_torch.ops.deproject import Intrinsics, rgbd_to_organized_cloud
-from rspc_tpu_torch.registration.schemes import NDTEdgeBasedRegistration
+from rspc_tpu_torch.registration.schemes import (
+    ICPEdgeBasedRegistration,
+    NDTEdgeBasedRegistration,
+)
 
 N, YAW, W, H = 3, -0.08, 160, 120
 GT_BOUND = 2e-2
+TOTALS_TOL = 5e-4
 
 
 def _scaled_config():
@@ -57,14 +68,18 @@ def jax_run():
     return seq, clouds, cfg, scheme, result
 
 
-@pytest.fixture(scope="module")
-def port_run(jax_run):
-    _, clouds, cfg, _, _ = jax_run
-    frames = [
+def _port_frames(clouds):
+    return [
         cloud_from_numpy({k: np.asarray(getattr(c, k)) for k in ("xyz", "rgb", "valid")},
                          organized=True)
         for c in clouds
     ]
+
+
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    _, clouds, cfg, _, _ = jax_run
+    frames = _port_frames(clouds)
     scheme = NDTEdgeBasedRegistration(
         rads=YAW, config=config_from_dict(dataclasses.asdict(cfg))
     )
@@ -111,7 +126,7 @@ def test_slice_totals_match_jax(jax_run, port_run):
     want = np.asarray(jscheme.total_transforms)
     got = tscheme.total_transforms.numpy()
     assert got.shape == (N - 1, 4, 4)
-    assert np.abs(got - want).max() <= 5e-4, np.abs(got - want).max()
+    assert np.abs(got - want).max() <= TOTALS_TOL, np.abs(got - want).max()
     for i in range(1, N):
         gt = seq.gt_transform(i)
         assert np.abs(want[i - 1] - gt).max() < GT_BOUND
@@ -137,3 +152,31 @@ def test_slice_global_cloud(jax_run, port_run):
     assert np.isfinite(tresult.xyz.numpy()).all()
     np.testing.assert_allclose(tresult.xyz.numpy()[v], np.asarray(jresult.xyz)[v],
                                rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_icp_edge_end_to_end_matches_jax(jax_run, scan):
+    """Config 3 at 160x120: IMU thetas, phase 1 and the chain of each
+    package, on the fused path and on the per-frame loop."""
+    seq, clouds, cfg, _, _ = jax_run
+    cfg = dataclasses.replace(cfg, use_scan=scan)
+    thetas = seq.thetas()
+    jscheme = JICPReg(thetas=thetas, config=cfg)
+    jscheme.registration(clouds)
+    tscheme = ICPEdgeBasedRegistration(
+        thetas=np.asarray(thetas), config=config_from_dict(dataclasses.asdict(cfg))
+    )
+    tresult = tscheme.registration(_port_frames(clouds))
+    want = np.asarray(jscheme.total_transforms)
+    got = tscheme.total_transforms.numpy()
+    assert got.shape == (N - 1, 4, 4)
+    assert np.abs(got - want).max() <= TOTALS_TOL, np.abs(got - want).max()
+    assert [bool(f.converged) for _, f in tscheme.results] == [
+        bool(f.converged) for _, f in jscheme.results
+    ]
+    np.testing.assert_array_equal(
+        tscheme.anchor_accepted.numpy(), np.asarray(jscheme.anchor_accepted)
+    )
+    assert np.isfinite(tresult.xyz.numpy()).all()
+    for i in range(1, N):
+        assert np.abs(got[i - 1] - seq.gt_transform(i)).max() < GT_BOUND
