@@ -71,7 +71,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      labeller with identical totals; the converged count and the error
      against ground truth printed, not gated (the reference preset has
      no guard and a 1 cm fine cap); and ``NDTEdgeBasedRegistration(
-     rads=-0.08, config=PipelineConfig())`` once on the same clouds.
+     rads=-0.08, config=PipelineConfig())`` once on the same clouds;
+ 11. the command line, through ``rspc_tpu_torch.cli.main`` in a temporary
+     directory on the CLI's synthetic source (10 x 640x480, yaw -0.15
+     rad), each command from launch counts set to 0, rc 0 and no plain
+     version on the card required, its wall printed and, from a profiled
+     rerun, the card's busy time: ``--capture seq 10`` with the odometry
+     (10 PCDs and 9 match PNGs, the same bytes as a run without the
+     odometry, good matches and translation per pair printed; keypoints
+     and descriptors of one frame equal bit for bit over two runs);
+     ``--edges seq-0.pcd`` (the 5-class labeller: B3 twice);
+     ``--registration seq -9 10`` (read back within 1e-4 m of the same
+     scheme run through the API; B1 and B3); ``--view seq-0`` (the PNG
+     against the CPU render, at most 0.1% of the pixels apart);
+     ``--all 10 out`` (out.pcd and 11 edge PCDs, B3 twice and B1, totals
+     within 1e-5 of the API run).
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -127,6 +141,12 @@ FP32_FMA_PER_S = 33.5e12
 NN_OPS_PER_PAIR = 4  # 3 for s.t, 1 for |t|^2 + pen - 2 s.t
 # kernel B3's passes, by the names of their kernels (csrc/hysteresis.cu)
 B3_PASSES = ("hysteresis_local", "hysteresis_merge", "hysteresis_output")
+# the CLI phase: the CLI's default synthetic source, --registration's
+# degrees, and what each command is held to
+CLI_FRAMES, CLI_DEG = 10, -9
+CLI_REG_TOL = 1e-4  # m, the registration file against the API run
+CLI_ALL_TOL = 1e-5  # m, --all's out.pcd against the API run
+CLI_VIEW_TIE_FRAC = 1e-3  # --view PNG pixels that may differ from the CPU render
 
 
 def log(*a):
@@ -1017,13 +1037,205 @@ def phase_reference(dev, seq, clouds, thetas):
     return launches
 
 
+def read_png(path) -> np.ndarray:
+    """The RGB8 pixels of a PNG that ``viz/png.py`` wrote (filter 0 rows)."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if (raw[:, 0] != 0).any():
+        raise AssertionError(f"{path}: unexpected PNG row filter")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+class spy:
+    """Within the block, the function ``module.name`` records what it
+    returns in ``self.got``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.got = module, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def recorded(*a, **kw):
+            out = orig(*a, **kw)
+            self.got.append(out)
+            return out
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_cli(dev, card):
+    """The ``rs-pcl`` commands through ``rspc_tpu_torch.cli.main`` on the
+    CLI's default synthetic source (10 frames, 640x480, yaw -0.15 rad) in
+    a temporary directory; each command from launch counts set to 0."""
+    import contextlib
+    import os
+    import tempfile
+
+    import torch
+
+    from rspc_tpu_torch import cli, cuda_build
+    from rspc_tpu_torch.capture import odometry
+    from rspc_tpu_torch.capture.replay import get_clouds
+    from rspc_tpu_torch.io import native
+    from rspc_tpu_torch.io.dataset import load_dataset_clouds
+    from rspc_tpu_torch.io.pcd import load_pcd
+    from rspc_tpu_torch.ops.keypoints import compute_descriptors, detect_keypoints
+    from rspc_tpu_torch.registration import schemes
+    from rspc_tpu_torch.viz.render import render_cloud
+
+    total = {k: 0 for k in cuda_build.LAUNCHES}
+    walls = {}
+
+    def command(argv, env=(), profile=False):
+        """Run ``rspc-torch argv`` (rc 0 required): its launches and wall;
+        with ``profile``, once more under the profiler for the card's busy
+        time."""
+        saved = {k: os.environ.get(k) for k, _ in env}
+        os.environ.update(dict(env))
+        try:
+            cuda_build.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["rspc-torch", *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, plain = dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+            rcs = [rc]
+            busy = device_profile(lambda: rcs.append(cli.main(["rspc-torch", *argv]))) \
+                if profile else ""
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        what = " ".join(argv) + "".join(f" ({k}={v})" for k, v in env)
+        log(f"cli {what}: rc {rc}, wall {wall:.3f} s on {card}; launches {launches}; "
+            f"plain versions on CUDA tensors {plain}" + (f"; profiled rerun: {busy}" if busy else ""))
+        if any(rcs):
+            raise AssertionError(f"rspc-torch {what} returned {rcs} (the run, the rerun)")
+        if any(plain.values()):
+            raise AssertionError(f"rspc-torch {what} ran a plain version on the card: {plain}")
+        for k in total:
+            total[k] += launches[k]
+        walls[what] = wall
+        return launches
+
+    log(f"host codec: {'native ' + native.LIB_PATH if native.available() else 'Python fallback'}")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        ds = os.path.join(tmp, "dataset")
+        matches = os.path.join(tmp, "matches")
+
+        # --capture, with the odometry (spied: good matches and poses per pair)
+        with spy(odometry, "get_clouds_new") as runs, \
+                spy(odometry, "match_descriptors") as matched:
+            command(["--capture", "seq", str(CLI_FRAMES)],
+                    env=[("RSPC_CAPTURE_MATCH_DIR", matches)], profile=True)
+        pairs = runs.got[0]
+        good = [int(g.sum()) for _, g in matched.got[:CLI_FRAMES - 1]]
+        moves = [np.round(p[:3, 3], 4).tolist() for _, p in pairs[1:]]
+        log(f"cli odometry: good matches per pair {good}; translation per pair {moves}")
+        pcds = sorted(f for f in os.listdir(ds) if f.startswith("seq-"))
+        pngs = sorted(os.listdir(matches))
+        if len(pcds) != CLI_FRAMES or len(pngs) != CLI_FRAMES - 1:
+            raise AssertionError(f"--capture wrote {pcds} and {pngs}")
+        if min(good) < 3 or not all(np.isfinite(p).all() for _, p in pairs):
+            raise AssertionError(f"odometry: good matches {good}")
+        command(["--capture", "plain", str(CLI_FRAMES)], env=[("RSPC_CAPTURE_NO_ODOMETRY", "1")])
+        for i in range(CLI_FRAMES):
+            a = open(os.path.join(ds, f"seq-{i}.pcd"), "rb").read()
+            if a != open(os.path.join(ds, f"plain-{i}.pcd"), "rb").read():
+                raise AssertionError(f"seq-{i}.pcd depends on the odometry")
+
+        # the odometry's features repeat bit for bit on the card
+        gray = odometry._gray(load_pcd(os.path.join(ds, "seq-0.pcd"), device=dev).rgb)
+        kp = [detect_keypoints(gray) for _ in range(2)]
+        desc = [compute_descriptors(gray, k[0], k[2], k[3], num_orientations=3) for k in kp]
+        if not (all(torch.equal(a, b) for a, b in zip(*kp))
+                and all(torch.equal(a, b) for a, b in zip(*desc))):
+            raise AssertionError("keypoints or descriptors differ between two runs")
+        cpu_kp = detect_keypoints(gray.cpu())
+        log(f"cli keypoints of seq-0 on the card: {int(kp[0][2].sum())} valid, two runs "
+            f"equal bit for bit; on the CPU {int(cpu_kp[2].sum())} valid")
+
+        # the full 5-class labeller, as in the JAX package
+        # (rspc_tpu/ops/edges.py:236-256): B3 on the high-curvature and
+        # on the RGB masks
+        launches = command(["--edges", "seq-0.pcd"], profile=True)
+        if launches["hysteresis"] != 2 or not os.path.getsize(
+                os.path.join(ds, "seq-0.pcd.edges.png")):
+            raise AssertionError(f"--edges: {launches}")
+
+        rads = (CLI_DEG / 180.0) * np.pi
+        launches = command(["--registration", "seq", str(CLI_DEG), str(CLI_FRAMES)],
+                           profile=True)
+        back = load_pcd(os.path.join(ds, "seq-registration"), device="cpu")
+        api = schemes.NDTEdgeBasedRegistration(rads=rads).registration(
+            load_dataset_clouds("seq", CLI_FRAMES, "dataset", device=dev))
+        want = api.xyz[api.valid].cpu()
+        reg_err = float((back.xyz - want).abs().max()) if back.xyz.shape == want.shape else None
+        log(f"cli --registration: {back.xyz.shape[0]} points read back, the API run "
+            f"{want.shape[0]}; max |diff| {reg_err}")
+        if reg_err is None or not reg_err <= CLI_REG_TOL:
+            raise AssertionError(f"--registration differs from the API run: {reg_err}")
+        if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0:
+            raise AssertionError(f"--registration kernels: {launches}")
+
+        command(["--view", "seq-0"], profile=True)
+        img = read_png(os.path.join(ds, "seq-0.pcd.png"))
+        c = load_pcd(os.path.join(ds, "seq-0.pcd"), device="cpu").flatten()
+        cpu_img = render_cloud(c.xyz, c.rgb, c.valid).numpy()
+        differ = int((img != cpu_img).any(-1).sum())
+        log(f"cli --view: {img.shape[1]}x{img.shape[0]} PNG, {differ} pixels differ from "
+            f"the CPU render")
+        if differ > CLI_VIEW_TIE_FRAC * img.shape[0] * img.shape[1]:
+            raise AssertionError(f"--view: {differ} pixels differ from the CPU render")
+
+        launches = command(["--all", str(CLI_FRAMES), "out"], profile=True)
+        back = load_pcd(os.path.join(ds, "out.pcd"), device="cpu")
+        clouds, thetas = get_clouds(cli._source(None, CLI_FRAMES, dev), CLI_FRAMES, device=dev)
+        api = schemes.ICPEdgeBasedRegistration(thetas=thetas).registration(clouds)
+        want = api.xyz[api.valid].cpu()
+        all_err = float((back.xyz - want).abs().max()) if back.xyz.shape == want.shape else None
+        files = sorted(f for f in os.listdir(ds) if f.startswith(("edge", "out")))
+        want_files = sorted(["out.pcd", "edge_cloud.pcd"]
+                            + [f"edge-{i}.pcd" for i in range(CLI_FRAMES)])
+        log(f"cli --all: {len(files)} PCDs; out.pcd {back.xyz.shape[0]} points read back, "
+            f"the API run {want.shape[0]}; max |diff| {all_err}")
+        if files != want_files:
+            raise AssertionError(f"--all wrote {files}")
+        if launches["hysteresis"] != 2 or launches["nn_sweep"] <= 0:
+            raise AssertionError(f"--all kernels: {launches}")
+        if all_err is None or not all_err <= CLI_ALL_TOL:
+            raise AssertionError(f"--all differs from the API run: {all_err}")
+    log(f"cli walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    return total
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    log(card_line())
+    card = card_line()
+    log(card)
     dev = torch.device("cuda:0")
 
     from rspc_tpu_torch import cuda_build
@@ -1049,6 +1261,7 @@ def main() -> int:
     ref_clouds, ref_thetas = replay_capture(seq, dev)
     per_path["config 3"] = phase_icp_edge(dev, seq, clouds, ref_thetas)
     per_path["reference preset"] = phase_reference(dev, seq, ref_clouds, ref_thetas)
+    per_path["cli"] = phase_cli(dev, card)
     log(f"launches per path (each from counts set to 0): {per_path}")
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["north star"]}
 

@@ -8,10 +8,16 @@ against), rebuilt on PyTorch for one NVIDIA H100:
   config.py         -- copy of the JAX package's typed configuration
   interop.py        -- numpy <-> port conversions the parity tests use
   ops/              -- transforms, image ops, Canny (kernel B3), normals,
-                       edges, voxel grid, NN sweep (kernel B1), rigid fits
+                       edges, voxel grid, NN sweep (kernel B1), rigid fits,
+                       keypoints and RANSAC
   registration/     -- ICP, NDT, anchor refinement, the fused chain,
                        ``NDTEdgeBasedRegistration``
-  capture/          -- the synthetic RGBD renderer
+  capture/          -- the synthetic RGBD renderer, replay, the v2
+                       capture with its visual odometry
+  io/               -- PCD files, the dataset directory, the native codec
+  viz/              -- the headless renderer, PNG, the terminal viewer
+  utils/            -- logging, stage timers, profiler traces
+  cli.py            -- the reference's ``rs-pcl`` command line
   cuda_build.py     -- builds ``csrc/*.cu`` with nvcc on first use and
                        binds it with ctypes
   csrc/             -- the hand-written Hopper kernels

@@ -11,10 +11,12 @@ src/icp_edge_based_registration.hpp:68,126). Colour:
   * ``rgb``/``rgba`` TYPE U: a plain packed uint32 (alpha ignored).
 
 Organized clouds keep their WIDTH/HEIGHT, invalid points written as NaN
-xyz. LZF (binary_compressed) runs in Python here: the JAX package's
-native codec (``native/lzf.cpp``) is a separate library the port does
-not load yet (ROADMAP.md Queue A: io/native). ``load_pcd`` puts the
-cloud on ``device`` (the card unless the caller names the CPU).
+xyz. LZF (binary_compressed) goes through the native codec
+(``native/lzf.cpp``, bound by ``io/native.py``) when the library is
+available, and through the Python codec below otherwise. Each reads the
+other's output, but their compressed bytes differ (each codec equals
+its counterpart in the JAX package). ``load_pcd`` puts the cloud on
+``device`` (the card unless the caller names the CPU).
 """
 
 from __future__ import annotations
@@ -57,7 +59,13 @@ def _parse_header(f) -> dict:
 
 
 def _lzf_decompress(data: bytes, expected: int) -> bytes:
-    """Decompress LZF (libLZF format, as used by PCL binary_compressed)."""
+    """Decompress LZF (libLZF format, as used by PCL binary_compressed):
+    the native codec when available, else this Python loop."""
+    from rspc_tpu_torch.io import native
+
+    out_native = native.lzf_decompress(data, expected)
+    if out_native is not None:
+        return out_native
     out = bytearray(expected)
     i, o, n = 0, 0, len(data)
     while i < n:
@@ -83,8 +91,14 @@ def _lzf_decompress(data: bytes, expected: int) -> bytes:
 
 
 def _lzf_compress(data: bytes) -> bytes:
-    """LZF compressor: greedy matches of three or more bytes against the
-    last position of each 3-byte key, offsets below 8192."""
+    """LZF compressor: the native codec when available, else greedy
+    matches of three or more bytes against the last position of each
+    3-byte key, offsets below 8192."""
+    from rspc_tpu_torch.io import native
+
+    out_native = native.lzf_compress(data)
+    if out_native is not None:
+        return out_native
     n = len(data)
     out = bytearray()
     htab = {}

@@ -82,14 +82,18 @@ def _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score, best_idx, ok):
 
 def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048):
     """Plain PyTorch sweep: the target in ``chunk``-row tiles holding a
-    running (best score, best index); peak memory one [N, chunk] tile."""
+    running (best score, best index); peak memory one [N, chunk] tile.
+    Tiles after the last valid target row are skipped (they score inf
+    everywhere and cannot win), as the kernels skip dead capacity."""
     if src_xyz.is_cuda:
         cuda_build.PLAIN_ON_CUDA["nn_sweep"] += 1
-    n, m = src_xyz.shape[0], tgt_xyz.shape[0]
+    n = src_xyz.shape[0]
+    rows = tgt_valid.nonzero()
+    live = int(rows[-1, 0]) + 1 if rows.numel() else 0
     s, t = _recentre(src_xyz, tgt_xyz, tgt_valid)
     best_score = torch.full((n,), float("inf"), device=s.device)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=s.device)
-    for base in range(0, m, chunk):
+    for base in range(0, live, chunk):
         tc = t[base:base + chunk]
         score = (tc * tc).sum(dim=-1)[None, :] - 2.0 * (s @ tc.T)
         score = torch.where(tgt_valid[None, base:base + chunk], score, float("inf"))

@@ -3,13 +3,14 @@
 ``NormalDistributionsTransform`` semantics).
 
 The target lives in a DENSE, INCREMENTAL ``[D^3]`` voxel grid of raw
-corner-residual moments (frames are added by one scatter-add); cells are
-finalized into means and eigenvalue-inflated inverse covariances with the
-batched Jacobi ``eigh3``. The objective uses the widened-table gather
-(one row gather per point per Newton iteration, neighbourhood frozen for
-the derivatives and the line search), single-pass analytic gradient and
-Hessian through a 10x10 gram matmul, and the closed-form first and
-second derivatives of ``R = Rx(a) Ry(b) Rz(c)`` in place of ``jacfwd``.
+corner-residual moments (each frame added as one per-cell segment sum);
+cells are finalized into means and eigenvalue-inflated inverse
+covariances with the batched Jacobi ``eigh3``. The objective uses the
+widened-table gather (one row gather per point per Newton iteration,
+neighbourhood frozen for the derivatives and the line search),
+single-pass analytic gradient and Hessian through a 10x10 gram matmul,
+and the closed-form first and second derivatives of
+``R = Rx(a) Ry(b) Rz(c)`` in place of ``jacfwd``.
 
 The Newton ``while_loop`` and the safeguarded More-Thuente line search
 become Python loops; each stop test reads one device bool (one host sync
@@ -118,9 +119,15 @@ def ndt_grid_update_moments(
     config: NDTConfig = NDTConfig(),
     gate=None,
 ) -> torch.Tensor:
-    """Scatter-add a cloud's [count, r, r r^T] rows into the raw cell
-    moments (returns a new tensor). Points outside the [D^3] span are
-    dropped; ``gate`` (bool tensor) False adds nothing, with no host sync."""
+    """Add a cloud's [count, r, r r^T] rows into the raw cell moments
+    (returns a new tensor). Points outside the [D^3] span are dropped;
+    ``gate`` (bool tensor) False adds nothing, with no host sync.
+
+    The rows are summed per cell in ascending row order (a stable sort by
+    cell, then a segment sum) and added to the moments: on the card a
+    scatter-add (``index_add``) adds with float atomics in an order that
+    changes from run to run, and NDT under ``PipelineConfig()`` turns
+    those last bits into a registration that does not repeat itself."""
     res = config.resolution
     d = config.dense_grid_dim
     valid = cloud.valid if gate is None else cloud.valid & gate
@@ -132,7 +139,11 @@ def ndt_grid_update_moments(
     rr = (r[:, :, None] * r[:, None, :]).reshape(-1, 9)
     upd = torch.cat([torch.ones_like(r[:, :1]), r, rr], dim=-1)
     upd = torch.where(in_b[:, None], upd, 0.0)  # dropped rows add zeros
-    return moments.index_add(0, flat.long(), upd)
+    cell, order = torch.sort(flat.long(), stable=True)
+    bounds = torch.searchsorted(cell, torch.arange(d**3 + 1, device=cell.device))
+    sums = torch.segment_reduce(upd.index_select(0, order), "sum",
+                                lengths=bounds[1:] - bounds[:-1], axis=0)
+    return moments + sums
 
 
 def ndt_grid_from_moments(

@@ -59,6 +59,7 @@ from rspc_tpu.ops.normals import estimate_normals as j_normals
 from rspc_tpu.registration import schemes as js
 from rspc_tpu_torch.config import EdgeConfig as TEdgeConfig
 from rspc_tpu_torch.interop import cloud_from_numpy, config_from_dict
+from rspc_tpu_torch.io import native as tnative
 from rspc_tpu_torch.io import pcd as tpcd
 from rspc_tpu_torch.ops import edges as tedges
 from rspc_tpu_torch.registration import chainscan as tchain
@@ -439,10 +440,17 @@ def _pcd_clouds():
     )
 
 
+@pytest.mark.parametrize("codec", ["native", "python"])
 @pytest.mark.parametrize("mode", ["ascii", "binary", "binary_compressed"])
 @pytest.mark.parametrize("keep_invalid", [True, False])
-def test_save_pcd_bytes_match_jax(tmp_path, monkeypatch, mode, keep_invalid):
-    monkeypatch.setattr(jnative, "lzf_compress", lambda data: None)
+def test_save_pcd_bytes_match_jax(tmp_path, monkeypatch, codec, mode, keep_invalid):
+    if codec == "native":
+        # both packages compress through the same native codec where it builds
+        assert tnative.available() == jnative.available()
+    else:
+        # both packages' Python compressors
+        monkeypatch.setattr(jnative, "lzf_compress", lambda data: None)
+        monkeypatch.setattr(tnative, "lzf_compress", lambda data: None)
     for k, (jc, tc) in enumerate(_pcd_clouds()):
         a, b = tmp_path / f"jax{k}.pcd", tmp_path / f"port{k}.pcd"
         jpcd.save_pcd(a, jc, mode=mode, keep_invalid=keep_invalid)
