@@ -85,7 +85,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      scheme run through the API; B1 and B3); ``--view seq-0`` (the PNG
      against the CPU render, at most 0.1% of the pixels apart);
      ``--all 10 out`` (out.pcd and 11 edge PCDs, B3 twice and B1, totals
-     within 1e-5 of the API run).
+     within 1e-5 of the API run); ``--registration seq -9 10 --preset
+     robust`` (within 1e-4 m of ``robust_config(anchor_mode="map")``
+     through the API) and ``--all 10 out --preset auto`` (within 1e-5 m
+     of ``auto_register`` through the API);
+ 12. the robust stack on the robustness matrix's scenes
+     (``benchmarks/robustness.py``, 10 x 640x480, seed 0, rendered on the
+     card): ``robust_config(anchor_mode="map")`` on ``partial_overlap``,
+     ``color=True`` on ``combined``, ``pose_graph=True`` (IMU thetas,
+     skips {1, 2, 3} and the closures) on ``loop_drift``, and the first
+     again on the ``use_scan=False`` loop: every pair converged and max
+     |T_est - T_gt| within max(2 x ref, ref + 2e-3), ref the JAX
+     package's record (``benchmarks/records_matrix_r5_seed0.jsonl``) or,
+     where the JAX package on the CPU misses it, its CPU figure
+     (``ROBUST_JAX_CPU``; the loop path is held to the record),
+     each run from counts set to 0 once (the robust path's launches),
+     then timed once, with its host syncs, a profile and how often the
+     rescue's gate fired; B1 against its plain version at the map
+     anchor's last step and at a pose-graph pair, on those runs' clouds;
+ 13. ``auto_register`` on ``clean`` (the fast path keeps the north star,
+     not escalated) and on ``loop_drift`` (escalated, ``robust_map``),
+     held to ``benchmarks/records_auto_fastpath.jsonl`` the same way
+     (``AUTO_JAX_CPU``);
+     the other six scenes' selections and scores printed, not gated.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -147,6 +169,24 @@ CLI_FRAMES, CLI_DEG = 10, -9
 CLI_REG_TOL = 1e-4  # m, the registration file against the API run
 CLI_ALL_TOL = 1e-5  # m, --all's out.pcd against the API run
 CLI_VIEW_TIE_FRAC = 1e-3  # --view PNG pixels that may differ from the CPU render
+# The JAX package's accuracy records, seed 0 (max |T_est - T_gt|, taken
+# at an earlier commit): benchmarks/records_matrix_r5_seed0.jsonl (the
+# robust presets) and benchmarks/records_auto_fastpath.jsonl (auto).
+ROBUST_RECORDS = {"partial_overlap": 3.636e-3, "combined": 5.210e-2, "loop_drift": 1.753e-2}
+AUTO_RECORDS = {"clean": 3.290e-4, "loop_drift": 1.936e-2}
+# Where the JAX package as it stands misses its record on the CPU at
+# 640x480, a run is gated against that figure instead
+# (tests/torch_reference_parity.py robust; PERF.md section 6). For
+# the robust presets it is the JAX package's chain, anchors and pose
+# graph on the port's own edge clouds (--edges=port), since the
+# partial_overlap chain turns on which of the tied NMS pixels become
+# edges: the port's Canny equals the JAX package's evaluated op by op,
+# while its jitted program (FMA-contracted) differs in 6,223 edge pixels
+# of frame 0, and the JAX package reaches 3.07e-3 on its own jitted edges
+# but 0.488 on the op-by-op ones. For auto it is the JAX package end to
+# end.
+ROBUST_JAX_CPU = {"partial_overlap": 4.884e-1, "combined": 1.093e-1, "loop_drift": 4.215e-2}
+AUTO_JAX_CPU = {"loop_drift": 6.397e-2}
 
 
 def log(*a):
@@ -523,7 +563,9 @@ def phase_hysteresis(dev, clouds):
 def device_profile(fn) -> str:
     """One run of ``fn`` under ``torch.profiler``: the union of the
     card's busy intervals, its share of the profiled wall, and the device
-    time of the largest kernels. Information only, never a gate."""
+    time of the largest kernels. Information only, never a gate. Reads
+    the profiler's raw events (building its event tree takes minutes on
+    the robust runs' 150k-230k events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,25 +575,25 @@ def device_profile(fn) -> str:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_events = [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
     if not dev_events:
         return "the profiler saw no device events"
     busy, end = 0.0, float("-inf")
     per_name = {}
-    for e in sorted(dev_events, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
+    for name, start, stop in sorted(dev_events, key=lambda e: e[1]):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-        per_name[e.name] = per_name.get(e.name, 0.0) + (stop - start)
+        per_name[name] = per_name.get(name, 0.0) + (stop - start)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:4]
-    sweep = [e for e in dev_events if "nn_sweep_pass" in e.name]
-    sweep_ms = sum(e.time_range.end - e.time_range.start for e in sweep) / 1e3
+    sweep = [e for e in dev_events if "nn_sweep_pass" in e[0]]
+    sweep_ms = sum(stop - start for _, start, stop in sweep) / 1e3
     b3 = {}
-    for e in dev_events:
-        for name in B3_PASSES:
-            if name in e.name:
-                b3[name] = b3.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    for name, start, stop in dev_events:
+        for p in B3_PASSES:
+            if p in name:
+                b3[p] = b3.get(p, 0.0) + (stop - start) / 1e3
     b3_line = ", ".join(f"{n} {b3[n]:.4f} ms" for n in B3_PASSES if n in b3) or "none"
     return (f"device busy {busy / 1e3:.3f} ms of a {wall * 1e3:.1f} ms profiled run "
             f"({100 * busy / 1e3 / (wall * 1e3):.1f}%), {len(dev_events)} device events; "
@@ -797,6 +839,12 @@ def timed_runs(what, run):
     return times
 
 
+def pair_errs(seq, totals) -> np.ndarray:
+    """max |T_est - T_gt| of each pair."""
+    t = totals.cpu().numpy()
+    return np.array([np.abs(t[i - 1] - seq.gt_transform(i)).max() for i in range(1, N_FRAMES)])
+
+
 def max_gt_err(seq, totals) -> float:
     t = totals.cpu().numpy()
     return float(max(np.abs(t[i - 1] - seq.gt_transform(i)).max() for i in range(1, N_FRAMES)))
@@ -1037,6 +1085,283 @@ def phase_reference(dev, seq, clouds, thetas):
     return launches
 
 
+def scenarios():
+    """The robustness matrix's scenes (``benchmarks/robustness.py:35-106``,
+    with the port's ``DepthNoise``): name -> ``SyntheticSequence``
+    keyword arguments."""
+    from rspc_tpu_torch.capture.synthetic import DepthNoise
+
+    mild = DepthNoise(lateral_px=0.5, dropout=0.02)
+    heavy = DepthNoise(axial_a=0.002, axial_b=0.004, lateral_px=1.0, dropout=0.10)
+    out_back = (0, 1, 2, 3, 4, 5, 4, 3, 2, 1)
+    return {
+        "clean": {},
+        "noise_mild": {"noise": mild},
+        "noise_heavy": {"noise": heavy},
+        "partial_overlap": {"yaw_step": -0.25, "translation_step": (0.12, 0.0, 0.08)},
+        "low_texture": {"texture_contrast": 0.15},
+        "combined": {"noise": mild, "yaw_step": -0.25, "translation_step": (0.10, 0.0, 0.06),
+                     "texture_contrast": 0.3},
+        "loop_return": {"noise": heavy, "yaw_schedule": tuple(-0.15 * y for y in out_back)},
+        "loop_drift": {"noise": mild, "texture_contrast": 0.3,
+                       "yaw_schedule": tuple(-0.2 * y for y in out_back),
+                       "translation_schedule": tuple((0.09 * y, 0.0, 0.05 * y)
+                                                     for y in out_back)},
+    }
+
+
+def scenario(name, dev):
+    """(sequence, clouds on the card, the scheme's guess keywords, the
+    pose graph's skips) of one robustness scene at 10 x 640x480, seed 0,
+    as ``benchmarks/robustness.py:141-170`` builds them: rads for the
+    linear trajectories; for the scheduled ones the IMU thetas and the
+    skips {1, 2, 3} with the equal-yaw closure offsets."""
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
+    from rspc_tpu_torch.ops.deproject import Intrinsics
+
+    kw = dict(scenarios()[name])
+    yaw = kw.pop("yaw_step", YAW_STEP)
+    seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=yaw, seed=0,
+                            intr=Intrinsics.simple(WIDTH, HEIGHT), **kw)
+    clouds = seq.clouds(device=dev)
+    if "yaw_schedule" not in kw:
+        return seq, clouds, {"rads": yaw}, None
+    yaws = kw["yaw_schedule"]
+    closure = {j - i for i in range(N_FRAMES) for j in range(i + 1, N_FRAMES)
+               if abs(yaws[i] - yaws[j]) < 1e-9}
+    return seq, clouds, {"thetas": seq.thetas(device=dev)}, tuple(sorted({1, 2, 3} | closure))
+
+
+def record_gate(record: float, jax_cpu: float = 0.0) -> float:
+    """max(2 x ref, ref + 2e-3), ref the record or, where the JAX
+    package on the CPU misses it, the JAX package's figure."""
+    ref = max(record, jax_cpu)
+    return max(2.0 * ref, ref + 2e-3)
+
+
+def phase_robust(dev):
+    """The robust stack: the three robust presets on their scenes and the
+    robust preset's loop path, each held to the matrix's record or, where
+    the JAX package on the CPU misses it, to the JAX package's figure
+    (``record_gate``), and B1 at the map anchor's and a pose-graph pair's
+    shapes against its plain version. Returns (launches of the robust
+    path, the B1 entries)."""
+    import dataclasses
+
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.presets import robust_config
+    from rspc_tpu_torch.registration import pairsteps
+    from rspc_tpu_torch.registration.schemes import NDTEdgeBasedRegistration
+
+    runs = [  # (label, scene, config, record, the JAX package's CPU figure)
+        ("robust_map", "partial_overlap", robust_config(anchor_mode="map"),
+         ROBUST_RECORDS["partial_overlap"], ROBUST_JAX_CPU["partial_overlap"]),
+        ("robust_color", "combined", robust_config(anchor_mode="map", color=True),
+         ROBUST_RECORDS["combined"], ROBUST_JAX_CPU["combined"]),
+        ("robust_graph", "loop_drift", robust_config(anchor_mode="map", pose_graph=True),
+         ROBUST_RECORDS["loop_drift"], ROBUST_JAX_CPU["loop_drift"]),
+        # the loop path refines every pair in the chain (ROADMAP.md Queue C):
+        # held to the record itself
+        ("robust_map loop path", "partial_overlap",
+         dataclasses.replace(robust_config(anchor_mode="map"), use_scan=False),
+         ROBUST_RECORDS["partial_overlap"], 0.0),
+    ]
+    scenes = {}
+    for _, scene, *_ in runs:
+        if scene not in scenes:
+            scenes[scene] = scenario(scene, dev)
+
+    def run_of(scene, cfg):
+        seq, clouds, guess_kw, skips = scenes[scene]
+        if cfg.refine.pose_graph:
+            cfg = dataclasses.replace(cfg, refine=dataclasses.replace(
+                cfg.refine, pose_graph_skips=skips))
+
+        def run():
+            scheme = NDTEdgeBasedRegistration(config=cfg, **guess_kw)
+            result = scheme.registration(clouds)
+            torch.cuda.synchronize()
+            return scheme, result
+        return run
+
+    # the path's launches: every run once, from counts set to 0; the
+    # rescue's gate is counted by spying on it
+    fired = []
+    orig = pairsteps._rescue_from
+
+    def spied(*a, **kw):
+        rel, need = orig(*a, **kw)
+        fired.append(need)
+        return rel, need
+
+    pairsteps._rescue_from = spied
+    try:
+        cuda_build.reset_counts()
+        results = {}
+        for label, scene, cfg, *_ in runs:
+            n0 = len(fired)
+            results[label] = run_of(scene, cfg)() + (
+                sum(bool(f) for f in fired[n0:]), len(fired) - n0)
+        launches, plain = dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+    finally:
+        pairsteps._rescue_from = orig
+    log(f"robust launches (every run once): {launches}; plain versions on CUDA tensors "
+        f"{plain}")
+    if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0 or any(plain.values()):
+        raise AssertionError(f"robust path kernels: {launches}, plain {plain}")
+
+    failures = []
+    for label, scene, cfg, record, jax_cpu in runs:
+        gate = record_gate(record, jax_cpu)
+        scheme, result, n_fired, n_gates = results[label]
+        seq = scenes[scene][0]
+        converged = [bool(f.converged) for _, f in scheme.results]
+        err = max_gt_err(seq, scheme.total_transforms)
+        run = run_of(scene, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        _, syncs = count_syncs(run)
+        log(f"{label} on {scene}: wall {wall:.4f} s (after one run); converged "
+            f"{sum(converged)}/{len(converged)}; max |T_est - T_gt| {err:.4e} (record "
+            f"{record:.4e}, the JAX package on the CPU {jax_cpu or 'meets it'}, gate "
+            f"{gate:.4e}); per pair {np.round(pair_errs(seq, scheme.total_transforms), 5).tolist()}; "
+            f"rescue gate fired {n_fired} of "
+            f"{n_gates}; host syncs {syncs}; anchor accepted "
+            f"{scheme.anchor_accepted.tolist() if scheme.anchor_accepted is not None else None}")
+        log(f"{label} profile: " + device_profile(run))
+        if not all(converged) or not err <= gate:
+            failures.append(f"{label}: converged {converged}, max error {err:.4e}")
+        if not torch.isfinite(result.xyz).all():
+            failures.append(f"{label}: non-finite global cloud")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    nn = robust_nn_shapes(dev, results["robust_map"][0], results["robust_graph"][0])
+    return launches, nn
+
+
+def robust_nn_shapes(dev, map_scheme, graph_scheme):
+    """B1 against its plain version at the map anchor's last step (one
+    frame's 10,240-slot refine cloud against the map of the 9 frames
+    before it, 102,400 slots) and at a pose-graph pair (3,414 strided
+    sources against a 10,240-slot frame), on the runs' own clouds placed
+    by their totals; each timed with its bound and ``torch.cdist``."""
+    import torch
+
+    from rspc_tpu_torch.ops.nn import card_plan, nearest_neighbors, nearest_neighbors_cuda
+    from rspc_tpu_torch.ops.transform import apply_transform
+
+    out = {}
+    full, totals = map_scheme._out["full_down"], map_scheme.total_transforms
+    eye = torch.eye(4, device=dev)
+    poses = torch.cat([eye[None], totals])
+    placed = torch.stack([apply_transform(poses[i], full.xyz[i]) for i in range(N_FRAMES)])
+    m = full.valid.shape[1]
+    map_xyz = torch.zeros((N_FRAMES * m, 3), device=dev)
+    map_val = torch.zeros((N_FRAMES * m,), dtype=torch.bool, device=dev)
+    map_xyz[:(N_FRAMES - 1) * m] = placed[:-1].reshape(-1, 3)
+    map_val[:(N_FRAMES - 1) * m] = full.valid[:-1].reshape(-1)
+    g_full, g_tot = graph_scheme._out["full_down"], graph_scheme.total_transforms
+    step = -(-m // graph_scheme.config.refine.anchor_max_points)
+    shapes = {
+        "map_anchor": (placed[-1], full.valid[-1], map_xyz, map_val, 16384),
+        "pose_graph": (apply_transform(g_tot[0], g_full.xyz[1][::step]),
+                       g_full.valid[1][::step], g_full.xyz[0], g_full.valid[0], 16384),
+    }
+    for name, (*args, chunk) in shapes.items():
+        args = [a.contiguous() for a in args]
+        err = nn_vs_plain(f"B1 {name} shape", args, nearest_neighbors_cuda(*args), chunk)
+        plan = card_plan(args[0].shape[0], dev)
+        ms = cuda_ms(nn_kernel_only(args, plan), 50)
+        wrap = cuda_ms(lambda: nearest_neighbors_cuda(*args), 20)
+        plain = cuda_ms(lambda: nearest_neighbors(*args, chunk=chunk), 3)
+        lib = cuda_ms(lambda: torch.cdist(args[0], args[2]).min(dim=1), 3)
+        bnd = nn_bound(*args)
+        log(f"B1 {name} shape {args[0].shape[0]} ({int(args[1].sum())} valid) x "
+            f"{args[2].shape[0]} ({int(args[3].sum())} valid), {plan_line(plan, dev)}: "
+            f"max |dist2 kernel - plain| {err:.3e}; kernel {ms:.4f} ms (wrapper {wrap:.3f} ms), "
+            f"plain {plain:.3f} ms, torch.cdist+min {lib:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}, {100 * bnd['bound_ms'] / ms:.1f}%)")
+        out[name] = {"err": err, "ms": ms, "plain_ms": plain, "library_ms": lib, **bnd}
+    return out
+
+
+def phase_auto(dev, card):
+    """``auto_register`` on the clean scene (the fast path keeps the north
+    star) and on ``loop_drift`` (it escalates and keeps ``robust_map``),
+    each held to its record; then, without a gate, the other scenes'
+    selections and scores. Returns the auto path's launches."""
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.registration.auto import auto_register
+
+    gated = {"clean": ("north_star", False, AUTO_RECORDS["clean"], 0.0),
+             "loop_drift": ("robust_map", True, AUTO_RECORDS["loop_drift"],
+                            AUTO_JAX_CPU["loop_drift"])}
+    scenes = {name: scenario(name, dev) for name in gated}
+
+    def run_of(name):
+        _, clouds, guess_kw, _ = scenes[name]
+
+        def run():
+            ar = auto_register(clouds, **guess_kw)
+            torch.cuda.synchronize()
+            return ar
+        return run
+
+    cuda_build.reset_counts()
+    results = {name: run_of(name)() for name in gated}
+    launches, plain = dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+    log(f"auto launches (each gated scene once): {launches}; plain versions on CUDA "
+        f"tensors {plain}")
+    if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0 or any(plain.values()):
+        raise AssertionError(f"auto path kernels: {launches}, plain {plain}")
+    failures = []
+    for name, (want, escalated, record, jax_cpu) in gated.items():
+        gate = record_gate(record, jax_cpu)
+        ar = results[name]
+        seq = scenes[name][0]
+        converged = [bool(f.converged) for _, f in ar.scheme.results]
+        err = max_gt_err(seq, ar.total_transforms)
+        run = run_of(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        _, syncs = count_syncs(run)
+        log(f"auto on {name}: selected {ar.selected} (record {want}), escalated "
+            f"{ar.escalated} (record {escalated}), closures {ar.closures}, texture "
+            f"{ar.texture:.4f}, scores {ar.scores}; converged {sum(converged)}/"
+            f"{len(converged)}; max |T_est - T_gt| {err:.4e} (record {record:.4e}, the JAX "
+            f"package on the CPU {jax_cpu or 'meets it'}, gate {gate:.4e}); wall {wall:.4f} s "
+            f"(after one run) on {card}; "
+            f"host syncs {syncs}")
+        log(f"auto on {name} profile: " + device_profile(run))
+        if (ar.selected != want or bool(ar.escalated) != escalated or not all(converged)
+                or not err <= gate):
+            failures.append(f"auto on {name}: {ar.selected}, escalated {ar.escalated}, "
+                            f"converged {converged}, error {err:.4e}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for name in scenarios():
+        if name in gated:
+            continue
+        seq, clouds, guess_kw, _ = scenario(name, dev)
+        t0 = time.perf_counter()
+        ar = auto_register(clouds, **guess_kw)
+        torch.cuda.synchronize()
+        conv = sum(bool(f.converged) for _, f in ar.scheme.results)
+        log(f"auto on {name} (not gated): selected {ar.selected}, escalated {ar.escalated}, "
+            f"scores {ar.scores}; converged {conv}/{N_FRAMES - 1}; max |T_est - T_gt| "
+            f"{max_gt_err(seq, ar.total_transforms):.4e}; wall {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def read_png(path) -> np.ndarray:
     """The RGB8 pixels of a PNG that ``viz/png.py`` wrote (filter 0 rows)."""
     import struct
@@ -1096,7 +1421,9 @@ def phase_cli(dev, card):
     from rspc_tpu_torch.io.dataset import load_dataset_clouds
     from rspc_tpu_torch.io.pcd import load_pcd
     from rspc_tpu_torch.ops.keypoints import compute_descriptors, detect_keypoints
+    from rspc_tpu_torch.presets import robust_config
     from rspc_tpu_torch.registration import schemes
+    from rspc_tpu_torch.registration.auto import auto_register
     from rspc_tpu_torch.viz.render import render_cloud
 
     total = {k: 0 for k in cuda_build.LAUNCHES}
@@ -1224,6 +1551,36 @@ def phase_cli(dev, card):
             raise AssertionError(f"--all kernels: {launches}")
         if all_err is None or not all_err <= CLI_ALL_TOL:
             raise AssertionError(f"--all differs from the API run: {all_err}")
+
+        # the robust stack on the command line: --registration under the
+        # robust preset, --all under auto, each against its API run
+        launches = command(["--registration", "seq", str(CLI_DEG), str(CLI_FRAMES),
+                            "--preset", "robust"], profile=True)
+        back = load_pcd(os.path.join(ds, "seq-registration"), device="cpu")
+        api = schemes.NDTEdgeBasedRegistration(
+            rads=rads, config=robust_config(anchor_mode="map")).registration(
+            load_dataset_clouds("seq", CLI_FRAMES, "dataset", device=dev))
+        want = api.xyz[api.valid].cpu()
+        rob_err = float((back.xyz - want).abs().max()) if back.xyz.shape == want.shape else None
+        log(f"cli --registration --preset robust: {back.xyz.shape[0]} points read back, the "
+            f"API run {want.shape[0]}; max |diff| {rob_err}")
+        if rob_err is None or not rob_err <= CLI_REG_TOL:
+            raise AssertionError(f"--registration --preset robust differs from the API run: "
+                                 f"{rob_err}")
+        if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0:
+            raise AssertionError(f"--registration --preset robust kernels: {launches}")
+        launches = command(["--all", str(CLI_FRAMES), "out", "--preset", "auto"], profile=True)
+        back = load_pcd(os.path.join(ds, "out.pcd"), device="cpu")
+        ar = auto_register(clouds, thetas=thetas)
+        want = ar.global_cloud.xyz[ar.global_cloud.valid].cpu()
+        auto_err = float((back.xyz - want).abs().max()) if back.xyz.shape == want.shape else None
+        log(f"cli --all --preset auto: the API run selects {ar.selected} (escalated "
+            f"{ar.escalated}, scores {ar.scores}); out.pcd {back.xyz.shape[0]} points read "
+            f"back, the API run {want.shape[0]}; max |diff| {auto_err}")
+        if auto_err is None or not auto_err <= CLI_ALL_TOL:
+            raise AssertionError(f"--all --preset auto differs from the API run: {auto_err}")
+        if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0:
+            raise AssertionError(f"--all --preset auto kernels: {launches}")
     log(f"cli walls on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
     return total
 
@@ -1254,15 +1611,31 @@ def main() -> int:
     log(f"rendered {N_FRAMES} {WIDTH}x{HEIGHT} frames on the card in "
         f"{time.perf_counter() - t0:.3f} s")
 
-    hyst = phase_hysteresis(dev, clouds)
-    per_path = {"north star": phase_slice(dev, seq, clouds),
-                "incremental": phase_incremental(dev, seq, clouds)}
-    per_path["config 2"], hc = phase_edges5(dev, clouds)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    hyst = timed("B3", phase_hysteresis, dev, clouds)
+    per_path = {"north star": timed("north star", phase_slice, dev, seq, clouds),
+                "incremental": timed("incremental", phase_incremental, dev, seq, clouds)}
+    per_path["config 2"], hc = timed("config 2", phase_edges5, dev, clouds)
     ref_clouds, ref_thetas = replay_capture(seq, dev)
-    per_path["config 3"] = phase_icp_edge(dev, seq, clouds, ref_thetas)
-    per_path["reference preset"] = phase_reference(dev, seq, ref_clouds, ref_thetas)
-    per_path["cli"] = phase_cli(dev, card)
+    per_path["config 3"] = timed("config 3", phase_icp_edge, dev, seq, clouds, ref_thetas)
+    per_path["reference preset"] = timed("reference preset", phase_reference, dev, seq,
+                                         ref_clouds, ref_thetas)
+    per_path["cli"] = timed("cli", phase_cli, dev, card)
+    per_path["robust"], robust_nn = timed("robust", phase_robust, dev)
+    per_path["auto"] = timed("auto", phase_auto, dev, card)
+    log(f"phase walls (s): {walls}")
     log(f"launches per path (each from counts set to 0): {per_path}")
+    nn["max_abs_err"] = max(nn["max_abs_err"], *(v["err"] for v in robust_nn.values()))
+    for shape, v in robust_nn.items():
+        nn.update({f"{k}_{shape}_shape": v[k] for k in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms")})
     launches = {k: sum(p[k] for p in per_path.values()) for k in per_path["north star"]}
 
     if "jax" in sys.modules or "rspc_tpu" in sys.modules:

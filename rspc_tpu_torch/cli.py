@@ -151,24 +151,51 @@ def _extract_preset(args: List[str]) -> tuple:
     return out, preset
 
 
-def _check_preset(preset: str) -> None:
-    if preset != "reference":
-        raise NotImplementedError(
-            f"--preset {preset} is not ported yet (ROADMAP.md Queue A step 4: "
-            "the robust_config stack)"
-        )
+class _AutoScheme:
+    """``auto_register`` behind the ``registration(clouds)`` surface the
+    commands call (types.hpp:14-20 analog), so ``--preset auto`` fits the
+    reference grammar."""
+
+    def __init__(self, rads=None, thetas=None):
+        self.rads, self.thetas = rads, thetas
+        self.result = None
+
+    def registration(self, clouds):
+        from rspc_tpu_torch.registration.auto import auto_register
+
+        ar = auto_register(clouds, thetas=self.thetas, rads=self.rads)
+        self.result = ar
+        print(f"[PCL] auto preset: selected '{ar.selected}' "
+              f"(closures={ar.closures}, texture={ar.texture:.4f})")
+        return ar.global_cloud
 
 
-def registration(prefix: str, rads: Optional[float], frames: int, device="cuda") -> None:
-    """``--registration`` (main.cpp:76-99): load dataset/{prefix}-{i}.pcd,
-    run the NDT edge scheme (``rads`` per frame, or the preset's static
-    guess), save dataset/{prefix}-registration (no extension) and render."""
-    from rspc_tpu_torch.io.dataset import load_dataset_clouds, registration_output_path
-    from rspc_tpu_torch.io.pcd import save_pcd
+def _registration_scheme(preset: str, rads=None, thetas=None):
+    """The NDT edge scheme of ``--registration`` under ``preset``
+    (reference default: main.cpp:208,218): ``reference`` the default
+    config, ``robust`` ``robust_config(anchor_mode="map")``, ``auto``
+    :class:`_AutoScheme`."""
     from rspc_tpu_torch.registration.schemes import NDTEdgeBasedRegistration
 
+    kw = {"thetas": thetas} if thetas is not None else {"rads": rads}
+    if preset == "reference":
+        return NDTEdgeBasedRegistration(**kw)
+    if preset == "robust":
+        from rspc_tpu_torch.presets import robust_config
+
+        return NDTEdgeBasedRegistration(config=robust_config(anchor_mode="map"), **kw)
+    return _AutoScheme(rads=rads, thetas=thetas)
+
+
+def registration(prefix: str, scheme, frames: int, device="cuda") -> None:
+    """``--registration`` (main.cpp:76-99): load dataset/{prefix}-{i}.pcd,
+    run ``scheme``, save dataset/{prefix}-registration (no extension)
+    and render."""
+    from rspc_tpu_torch.io.dataset import load_dataset_clouds, registration_output_path
+    from rspc_tpu_torch.io.pcd import save_pcd
+
     clouds = load_dataset_clouds(prefix, frames, DATASET, device=device)
-    result = NDTEdgeBasedRegistration(rads=rads).registration(clouds)
+    result = scheme.registration(clouds)
     out = registration_output_path(prefix, DATASET)
     save_pcd(out, result, keep_invalid=False)
     print(f"[PCL] Saved {out}")
@@ -186,17 +213,24 @@ def viewer(name: str, device="cuda") -> None:
 
 
 def capture_and_registration(frames: int, icp_based_filename: str,
-                             source_arg: Optional[str] = None, device="cuda") -> None:
+                             source_arg: Optional[str] = None, preset: str = "reference",
+                             device="cuda") -> None:
     """``--all``: capture and ICP-edge registration with IMU thetas
     (main.cpp:117-134); the edge scheme writes its edge PCDs into
-    dataset/, the global cloud goes to dataset/{file}.pcd."""
+    dataset/, the global cloud goes to dataset/{file}.pcd. Under another
+    ``preset`` the robust NDT stack or the auto selection takes the ICP
+    scheme's place, with the same thetas (and no edge PCDs)."""
     from rspc_tpu_torch.capture.replay import get_clouds
     from rspc_tpu_torch.io.pcd import save_pcd
     from rspc_tpu_torch.registration.schemes import ICPEdgeBasedRegistration
 
     src = _source(source_arg, frames, device)
     clouds, thetas = get_clouds(src, frames, device=device)
-    result = ICPEdgeBasedRegistration(thetas=thetas, dataset_dir=DATASET).registration(clouds)
+    if preset == "reference":
+        scheme = ICPEdgeBasedRegistration(thetas=thetas, dataset_dir=DATASET)
+    else:
+        scheme = _registration_scheme(preset, thetas=thetas)
+    result = scheme.registration(clouds)
     os.makedirs(DATASET, exist_ok=True)
     out = os.path.join(DATASET, icp_based_filename + ".pcd")
     save_pcd(out, result, keep_invalid=False)
@@ -229,10 +263,11 @@ SOURCE is an optional replay recording (.npz) or 'synthetic' (default):
 no camera attaches to the card's host; see rspc_tpu_torch.capture.replay
 for the recording format. Everything runs on the CUDA card.
 
+Beyond the reference (opt-in; the default matches the reference binary):
   --preset {reference|robust|auto}   (or env RSPC_PRESET=...)
-      registration stack for --registration / --all. Only 'reference'
-      (the reference binary's scheme) is ported; 'robust' and 'auto'
-      exit 1 (ROADMAP.md Queue A step 4)."""
+      registration stack for --registration / --all: 'robust' enables
+      warm start + rescue + progressive map anchoring; 'auto' measures a
+      candidate ladder on the trajectory and keeps the simplest winner."""
 
 
 def _stoi(s: str) -> int:
@@ -274,17 +309,16 @@ def _dispatch(argv: Optional[List[str]], device) -> int:
         edges(args[2], device)
         return 0
     if opt == "--registration" and argc in (4, 5):
-        _check_preset(preset)
         rads = None if argc == 4 else (_stoi(args[3]) / 180.0) * np.pi  # main.cpp:215
-        registration(args[2], rads, _stoi(args[-1]), device)
+        registration(args[2], _registration_scheme(preset, rads=rads), _stoi(args[-1]),
+                     device)
         return 0
     if opt == "--view" and argc == 3:
         viewer(args[2], device)
         return 0
     if opt == "--all" and argc in (4, 5):
-        _check_preset(preset)
         capture_and_registration(_stoi(args[2]), args[3], args[4] if argc == 5 else None,
-                                 device)
+                                 preset, device)
         return 0
 
     print(HELP)

@@ -20,8 +20,9 @@ the integral-image normals.
 Frames of one shape are labelled together: the depth classes run on the
 stacked ``[n, H, W]`` depth image (shifted on its last two axes), and
 each Canny stage ends in ONE hysteresis call over all frames (kernel B3
-on CUDA tensors), so a 5-class batch launches B3 twice. ``carry_cgrad``
-raises ``NotImplementedError`` (ROADMAP.md Queue A).
+on CUDA tensors), so a 5-class batch launches B3 twice. Under
+``carry_cgrad`` the edge cloud also carries each pixel's tangent-plane
+intensity gradient (``ops/colorgrad.py``), for the colored fine stage.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud, OrganizedCloud, compact
 from rspc_tpu_torch.config import EdgeConfig
+from rspc_tpu_torch.ops.colorgrad import color_gradients
 from rspc_tpu_torch.ops.canny import _hysteresis, canny_from_gradients, canny_masks
 from rspc_tpu_torch.ops.image import shift_hw
 from rspc_tpu_torch.ops.normals import estimate_normals
@@ -71,14 +73,6 @@ def _shuffle_priority(n: int) -> np.ndarray:
     return (inv[i // _SHUFFLE_BLOCK] * _SHUFFLE_BLOCK + i % _SHUFFLE_BLOCK).astype(
         np.int32
     )
-
-
-def _check_supported(config: EdgeConfig) -> None:
-    if config.carry_cgrad:
-        raise NotImplementedError(
-            "carry_cgrad (colour gradients on the edge cloud) is not ported "
-            "yet (ROADMAP.md Queue A: robust_config)"
-        )
 
 
 def _first_valid_along(z, valid, dr, dc, max_steps):
@@ -173,7 +167,6 @@ def _organized_edges_with_normals(clouds, config: EdgeConfig):
 def extract_organized_edges_batch(clouds, config: EdgeConfig = EdgeConfig()):
     """5-class labels ``i32[n, H, W]`` (the LABEL_* codes) of same-shaped
     organized frames (PCL ``compute(labels, label_indices)`` per frame)."""
-    _check_supported(config)
     return _organized_edges_with_normals(list(clouds), config)[0]
 
 
@@ -208,9 +201,11 @@ def _frame_inputs(cloud: OrganizedCloud, config: EdgeConfig):
     return (normals, n_valid, *_rgb_masks(cloud, config))
 
 
-def _compact(cloud: OrganizedCloud, rgb_edge, normals, config: EdgeConfig) -> Cloud:
+def _compact(cloud: OrganizedCloud, rgb_edge, normals, config: EdgeConfig,
+             cgrad=None) -> Cloud:
     """Edge pixels keyed by shuffled rank, everything else past the end;
-    one stable argsort keeps the first ``max_edge_points``."""
+    one stable argsort keeps the first ``max_edge_points``; ``cgrad``
+    (``[H, W, 3]``) rides along when given."""
     flat = cloud.flatten()
     hw = flat.capacity
     sel = rgb_edge.reshape(-1) & flat.valid
@@ -223,6 +218,7 @@ def _compact(cloud: OrganizedCloud, rgb_edge, normals, config: EdgeConfig) -> Cl
         take(flat.rgb),
         take(keys) != _SENTINEL,
         take(normals.reshape(hw, 3)),
+        cgrad=None if cgrad is None else take(cgrad.reshape(hw, 3)),
     )
     return out.pad_to(config.max_edge_points)
 
@@ -241,11 +237,11 @@ def extract_edge_features_batch(clouds, config: EdgeConfig = EdgeConfig()):
     hysteresis call per Canny class over the stacked ``[n, H, W]``
     masks). Returns ``(edge clouds, normal images, normal masks)`` per
     frame."""
-    _check_supported(config)
     clouds = list(clouds)
     labels, normals, n_valid = _organized_edges_with_normals(clouds, config)
     feats = [
-        _compact(c, labels[i] == LABEL_RGB_CANNY, normals[i], config)
+        _compact(c, labels[i] == LABEL_RGB_CANNY, normals[i], config,
+                 color_gradients(c, normals[i], n_valid[i]) if config.carry_cgrad else None)
         for i, c in enumerate(clouds)
     ]
     return feats, normals, n_valid

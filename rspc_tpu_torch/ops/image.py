@@ -19,21 +19,22 @@ def _pad_edge_hw(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def conv2d_same(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
-    """'Same' 2-D correlation of ``[H, W]`` with a small rank-1 kernel,
-    edge-replicated borders. Runs as the separable shift-multiply chain
-    with the JAX package's term order (rows first, then columns, zero
-    taps skipped), so results agree to the last few ulps."""
+    """'Same' 2-D correlation of ``[H, W]`` with a small kernel,
+    edge-replicated borders. A rank-1 kernel runs as the separable
+    shift-multiply chain with the JAX package's term order (rows first,
+    then columns, zero taps skipped), so results agree to the last few
+    ulps; any other kernel as one ``conv2d`` of the padded image (TF32
+    stays off, ``rspc_tpu_torch/__init__.py``)."""
     kn = np.asarray(kernel, np.float64)
     kh, kw = kn.shape
-    u, s, vt = np.linalg.svd(kn)
-    if not (s[0] > 0 and (len(s) == 1 or s[1] <= 1e-6 * s[0])):
-        raise NotImplementedError(
-            "only separable kernels are ported (ROADMAP.md Queue A)"
-        )
-    kv = (u[:, 0] * np.sqrt(s[0])).astype(np.float32)
-    kr = (vt[0] * np.sqrt(s[0])).astype(np.float32)
     h, w = img.shape
     p = _pad_edge_hw(img, kh // 2, kw // 2)
+    u, s, vt = np.linalg.svd(kn)
+    if not (s[0] > 0 and (len(s) == 1 or s[1] <= 1e-6 * s[0])):
+        k = torch.as_tensor(np.asarray(kernel), dtype=img.dtype, device=img.device)
+        return torch.nn.functional.conv2d(p[None, None], k[None, None])[0, 0]
+    kv = (u[:, 0] * np.sqrt(s[0])).astype(np.float32)
+    kr = (vt[0] * np.sqrt(s[0])).astype(np.float32)
     t = sum(float(kv[i]) * p[i:i + h, :] for i in range(kh) if kv[i] != 0.0)
     return sum(float(kr[j]) * t[:, j:j + w] for j in range(kw) if kr[j] != 0.0)
 

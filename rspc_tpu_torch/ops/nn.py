@@ -84,15 +84,18 @@ def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048)
     """Plain PyTorch sweep: the target in ``chunk``-row tiles holding a
     running (best score, best index); peak memory one [N, chunk] tile.
     Tiles after the last valid target row are skipped (they score inf
-    everywhere and cannot win), as the kernels skip dead capacity."""
+    everywhere and cannot win), as the kernels skip dead capacity, and
+    so are invalid sources (their distance is inf, their index 0)."""
     if src_xyz.is_cuda:
         cuda_build.PLAIN_ON_CUDA["nn_sweep"] += 1
     n = src_xyz.shape[0]
     rows = tgt_valid.nonzero()
     live = int(rows[-1, 0]) + 1 if rows.numel() else 0
     s, t = _recentre(src_xyz, tgt_xyz, tgt_valid)
-    best_score = torch.full((n,), float("inf"), device=s.device)
-    best_idx = torch.zeros((n,), dtype=torch.int32, device=s.device)
+    keep = src_valid.nonzero()[:, 0]
+    s = s.index_select(0, keep)
+    best_score = torch.full((keep.shape[0],), float("inf"), device=s.device)
+    best_idx = torch.zeros((keep.shape[0],), dtype=torch.int32, device=s.device)
     for base in range(0, live, chunk):
         tc = t[base:base + chunk]
         score = (tc * tc).sum(dim=-1)[None, :] - 2.0 * (s @ tc.T)
@@ -101,8 +104,10 @@ def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048)
         upd = c_score < best_score
         best_score = torch.where(upd, c_score, best_score)
         best_idx = torch.where(upd, (base + c_idx).to(torch.int32), best_idx)
-    return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score,
-                    best_idx, torch.ones_like(src_valid))
+    all_score = torch.full((n,), float("inf"), device=s.device).index_copy(0, keep, best_score)
+    all_idx = torch.zeros((n,), dtype=torch.int32, device=s.device).index_copy(0, keep, best_idx)
+    return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, all_score,
+                    all_idx, torch.ones_like(src_valid))
 
 
 def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid):

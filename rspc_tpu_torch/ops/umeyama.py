@@ -123,15 +123,32 @@ def _skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def plane_fit_moments(src, dst, normal, weights):
+def plane_fit_moments(src, dst, normal, weights, offset=None):
     """(H [..., 6, 6], g [..., 6]) of the linearized point-to-plane
-    problem: rows a = [src x n ; n], residuals r = n . (src - dst)."""
+    problem: rows a = [src x n ; n], residuals r = n . (src - dst)
+    (+ ``offset``). With ``n`` the target's intensity gradient and
+    ``offset = I_dst - I_src`` these are the colored-ICP rows."""
     w = weights.to(src.dtype)
     a = torch.cat([torch.linalg.cross(src, normal, dim=-1), normal], dim=-1)
     r = ((src - dst) * normal).sum(dim=-1)
+    if offset is not None:
+        r = r + offset
     aw = a * w[..., None]
     h = aw.transpose(-1, -2) @ a
     g = (aw.transpose(-1, -2) @ r[..., None])[..., 0]
+    return h, g
+
+
+def point_fit_moments(src, dst, weights):
+    """(H [..., 6, 6], g [..., 6]) of the LINEARIZED point-to-point
+    problem: residual r = src - dst, Jacobian [-[src]_x | I] in
+    (omega, t). Blended into the point-to-plane solve by ``point_mix``."""
+    w = weights.to(src.dtype)
+    eye = torch.eye(3, dtype=src.dtype, device=src.device).expand(*src.shape, 3)
+    a = torch.cat([-_skew(src), eye], dim=-1)  # [..., N, 3, 6]
+    aw = a * w[..., None, None]
+    h = torch.einsum("...nij,...nik->...jk", aw, a)
+    g = torch.einsum("...nij,...ni->...j", aw, src - dst)
     return h, g
 
 
@@ -147,17 +164,35 @@ def plane_fit_from_moments(h, g) -> torch.Tensor:
     return _homogeneous(_rodrigues(x[..., :3]), x[..., 3:])
 
 
-def plane_fit(src, dst, normal, weights) -> torch.Tensor:
+def plane_fit(src, dst, normal, weights, point_mix: float = 0.0, cgrad=None,
+              color_resid=None, color_weights=None) -> torch.Tensor:
     """Least-squares rigid transform minimizing point-to-plane error
     (one linearized Gauss-Newton step). Lever arms are taken about the
     weighted source centroid to decouple rotation from translation; the
-    solved motion is recomposed as a world transform."""
+    solved motion is recomposed as a world transform.
+
+    ``cgrad``/``color_resid``/``color_weights`` add the colored-ICP rows
+    (direction the target's intensity gradient, residual offset ``I_dst
+    - I_src``, their own weights, default ``weights``) about the same
+    centroid. ``point_mix`` > 0 blends in the point-to-point moments,
+    constraining directions the normal set leaves unobserved (a mix of
+    0 adds exactly zero moments in the JAX package, so skipping the term
+    gives the same bits)."""
     w = weights.to(src.dtype)
     sw = w.sum(dim=-1)
     sc = (src * w[..., None]).sum(dim=-2)
     c = sc / torch.clamp(sw, min=1e-12)[..., None]
-    h, g = plane_fit_moments(src - c[..., None, :], dst - c[..., None, :],
-                             normal, weights)
+    s_c, d_c = src - c[..., None, :], dst - c[..., None, :]
+    h, g = plane_fit_moments(s_c, d_c, normal, weights)
+    if cgrad is not None:
+        hc, gc = plane_fit_moments(
+            s_c, d_c, cgrad, weights if color_weights is None else color_weights,
+            offset=color_resid,
+        )
+        h, g = h + hc, g + gc
+    if point_mix > 0.0:
+        hp, gp = point_fit_moments(s_c, d_c, weights)
+        h, g = h + point_mix * hp, g + point_mix * gp
     t_c = plane_fit_from_moments(h, g)
     r = t_c[..., :3, :3]
     t = t_c[..., :3, 3] + c - (r @ c[..., :, None])[..., 0]

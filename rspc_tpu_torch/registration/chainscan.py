@@ -6,16 +6,17 @@ labels with one batched hysteresis per Canny class, edge compaction,
 the refine clouds' voxel means); ``_chain_scan`` the frame chain (voxel
 downsample; NDT coarse against the incremental moment grid or coarse
 ICP against the accumulated target; the coarse guard; fine ICP; the
-in-chain refine; ``merge_append``); ``_anchor_first`` the anchor
-refinement against frame 0 and ``_assemble_global`` the global cloud.
-The schemes (``schemes.py``) call them in that order. The JAX
-``lax.scan`` over frames becomes a Python loop; the per-frame
-convergence gate folds into the merge scatters, so no host sync decides
-a merge.
+in-chain refine; ``merge_append``; under ``warm_start`` the
+constant-velocity prediction, under a rescue threshold the gated
+wide-cap rescue), ``_anchor_stages`` the anchor refinement (against
+frame 0, or the progressive map) and the pose graph, and
+``_assemble_global`` the global cloud. The schemes (``schemes.py``) call
+them in that order. The JAX ``lax.scan`` over frames becomes a Python
+loop; the per-frame convergence gate folds into the merge scatters, so
+no host sync decides a merge (the rescue's gate is one sync per pair,
+``pairsteps.py``).
 
-Not ported yet (ROADMAP.md Queue A: robust_config): the warm start, the
-rescue stage, colour, the map anchor, the pose graph; nor the sharded
-form (``parallel/*``).
+Not ported yet: the sharded form (``parallel/*``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,14 @@ from rspc_tpu_torch.cloud import Cloud, OrganizedCloud
 from rspc_tpu_torch.ops.edges import extract_edge_features_batch
 from rspc_tpu_torch.ops.transform import apply_transform_cloud
 from rspc_tpu_torch.ops.voxel import voxel_downsample
-from rspc_tpu_torch.registration.anchor import _anchor_refine, _refine_step
-from rspc_tpu_torch.registration.bufferops import merge_append
+from rspc_tpu_torch.ops.colorgrad import color_gradients
+from rspc_tpu_torch.registration.anchor import (
+    _anchor_refine,
+    _anchor_refine_map,
+    _pose_graph_refine,
+    _refine_step,
+)
+from rspc_tpu_torch.registration.bufferops import _rigid_inverse, merge_append
 from rspc_tpu_torch.registration.icp import icp_align
 from rspc_tpu_torch.registration.ndt import (
     ndt_align,
@@ -38,17 +45,7 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_grid_origin,
     ndt_grid_update_moments,
 )
-from rspc_tpu_torch.registration.pairsteps import _guarded
-
-
-def _check_refine(r) -> None:
-    """Refuse the refine options that are not ported."""
-    if r.enabled and (r.color or r.pose_graph
-                      or (r.anchor_to_first and r.anchor_mode != "first")):
-        raise NotImplementedError(
-            "colored refine clouds, the map anchor and the pose graph are "
-            "not ported yet (ROADMAP.md Queue A: robust_config)"
-        )
+from rspc_tpu_torch.registration.pairsteps import _guarded, _maybe_rescue
 
 
 def _stack(clouds):
@@ -62,19 +59,26 @@ def _stack(clouds):
 
 
 def _prepare_full_down(oc: OrganizedCloud, normals, n_valid, leaf, cap,
-                       dec=1, purity=0.0) -> Cloud:
+                       dec=1, purity=0.0, color=False) -> Cloud:
     """The refine stage's cloud: integral-image normals on the organized
-    frame, every ``dec``-th pixel per axis, voxel means."""
+    frame, every ``dec``-th pixel per axis, voxel means; with ``color``
+    also the voxel means of the intensity-gradient field (computed at
+    full resolution, ``ops/colorgrad.py``) on ``Cloud.cgrad``."""
     xyz, rgb, valid, nrm = oc.xyz, oc.rgb, oc.valid & n_valid, normals
+    cg = color_gradients(oc, normals, n_valid) if color else None
     if dec > 1:
         xyz, rgb, valid, nrm = (x[::dec, ::dec] for x in (xyz, rgb, valid, nrm))
+        if cg is not None:
+            cg = cg[::dec, ::dec]
     m = xyz.shape[0] * xyz.shape[1]
     flat = Cloud(xyz.reshape(m, 3), rgb.reshape(m, 3), valid.reshape(m),
-                 normal=nrm.reshape(m, 3))
+                 normal=nrm.reshape(m, 3),
+                 cgrad=None if cg is None else cg.reshape(m, 3))
     return voxel_downsample(flat, leaf, cap, min_normal_purity=purity)
 
 
-def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1, purity=0.0):
+def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1, purity=0.0,
+                    color=False):
     """Phase 1 for all frames: stacked edge clouds ``[n, edge_cap]`` and,
     when ``with_full``, the stacked refine clouds ``[n, cap]``. Each Canny
     class's hysteresis is one batched call over the frames."""
@@ -82,7 +86,7 @@ def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1, purity=0.0):
     full = None
     if with_full:
         full = _stack([
-            _prepare_full_down(oc, normals[i], n_valid[i], leaf, cap, dec, purity)
+            _prepare_full_down(oc, normals[i], n_valid[i], leaf, cap, dec, purity, color)
             for i, oc in enumerate(frames)
         ])
     return _stack(feats), full
@@ -91,14 +95,27 @@ def _phase1_prepare(frames, edge_cfg, leaf, cap, with_full, dec=1, purity=0.0):
 def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
                 icp_cfg, refine_stages, leaf: float, voxel_cap: int,
                 target_cap: int, refine_target_cap: int,
-                coarse_guard_cap: float, refine_margin: float = 0.75):
+                coarse_guard_cap: float, refine_margin: float = 0.75,
+                warm_start: bool = False, rescue_thresh: float = 0.0,
+                rescue_cap: float = 0.1, rescue_iters: int = 8):
     """The frame chain over stacked edge clouds ``[n, edge_cap]``: per
     pair, the coarse stage from the guess (NDT against the incremental
     moment grid, or ICP against the accumulated target without its
     fitness sweep), the never-worsen guard, fine ICP on the accumulated
-    edge target, the refine against the accumulated full clouds when
-    ``full_all`` (stacked ``[n, full_cap]``) is given, then the gated
-    merges."""
+    edge target, the gated rescue when ``rescue_thresh`` > 0, the refine
+    against the accumulated full clouds when ``full_all`` (stacked
+    ``[n, full_cap]``) is given, then the gated merges.
+
+    ``warm_start`` (constant-velocity prediction): each pair's guess is
+    (previous achieved total) o (this pair's raw guess increment) o (the
+    carried LOCAL correction), and the guard also scores the raw guess,
+    the prediction with the ``_WARM_GUARD_MARGIN`` preference. The local
+    correction comes from the full achieved pair transform and updates
+    only where the fine ICP converged; the previous total updates for
+    every pair (gating it froze the prediction at identity on
+    edge-starved scenes, which converge 0/9 yet carry accurate totals:
+    the JAX package measured three orders of magnitude off on
+    ``low_texture``)."""
     n = edges_all.valid.shape[0]
     refine = full_all is not None
     edges_down = [
@@ -108,7 +125,8 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
     target0 = edges_down[0]
     target = merge_append(
         Cloud.empty(target_cap, target0.device,
-                    with_normal=target0.normal is not None),
+                    with_normal=target0.normal is not None,
+                    with_cgrad=target0.cgrad is not None),
         target0,
     )
     if use_ndt:
@@ -120,21 +138,35 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
         )
     if refine:
         target_full = merge_append(
-            Cloud.empty(refine_target_cap, target0.device, with_normal=True),
+            Cloud.empty(refine_target_cap, target0.device, with_normal=True,
+                        with_cgrad=full_all.cgrad is not None),
             full_all.map(lambda x: x[0]),
         )
+    if warm_start:
+        # per-pair guess increments inv(G[i-1]) @ G[i] (G[-1] = identity):
+        # the raw guesses are absolute frame -> frame-0 estimates
+        rel_guesses = torch.cat([guesses[:1], _rigid_inverse(guesses[:-1]) @ guesses[1:]])
+        prev_total = c_local = torch.eye(4, dtype=guesses.dtype, device=guesses.device)
     coarse_icp_cfg = dataclasses.replace(icp_cfg, compute_fitness=False)
     coarse_s, fine_s, ref_s, totals = [], [], [], []
     for i in range(1, n):
         edge_i, guess = edges_down[i], guesses[i - 1]
+        raw_guess = guess
+        if warm_start:
+            rel_g = rel_guesses[i - 1]
+            guess = prev_total @ rel_g @ c_local
         if use_ndt:
             grid = ndt_grid_from_moments(moments, origin, ndt_cfg)
             coarse = ndt_align(edge_i, grid, ndt_cfg, guess)
         else:
             coarse = icp_align(edge_i, target, coarse_icp_cfg, guess)
-        coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap)
+        coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap,
+                          raw_guess if warm_start else None)
         aligned = apply_transform_cloud(coarse.transform, edge_i)
         fine = icp_align(aligned, target, icp_cfg)
+        if rescue_thresh > 0.0:
+            fine, _ = _maybe_rescue(fine, apply_transform_cloud(fine.transform, aligned),
+                                    target, icp_cfg, rescue_thresh, rescue_cap, rescue_iters)
         total = fine.transform @ coarse.transform
         if refine:
             full_i = full_all.map(lambda x: x[i])
@@ -151,6 +183,10 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
             target_full = merge_append(
                 target_full, apply_transform_cloud(total, full_i), gate=conv
             )
+        if warm_start:
+            new_c = _rigid_inverse(rel_g) @ _rigid_inverse(prev_total) @ total
+            c_local = torch.where(conv, new_c, c_local)
+            prev_total = total
         coarse_s.append(coarse)
         fine_s.append(fine)
         totals.append(total)
@@ -164,14 +200,28 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
     }
 
 
-def _anchor_first(full_all: Cloud, totals, r):
-    """The anchor refinement against frame 0 of stacked refine clouds
-    ``[n, full_cap]``: (totals, accepted)."""
-    return _anchor_refine(
-        full_all.map(lambda x: x[0]), full_all.map(lambda x: x[1:]), totals,
-        r.anchor_stages, 1.0, r.gate_radius, r.gate_inlier_keep,
-        r.gate_rmse_blowup, max_points=r.anchor_max_points,
-    )
+def _anchor_stages(full_all: Cloud, totals, r):
+    """The refinements after the chain, on stacked refine clouds ``[n,
+    full_cap]``, as the enabled refine config ``r`` asks: the anchor against frame 0 or the
+    progressive map (``r.anchor_mode``), then the pose graph. Returns
+    (totals, accepted or None)."""
+    accepted = None
+    if r.anchor_to_first:
+        if r.anchor_mode == "map":
+            totals, accepted = _anchor_refine_map(
+                full_all, totals, r.anchor_stages, r.map_accept_margin, r.gate_radius,
+                r.gate_inlier_keep, r.gate_rmse_blowup,
+            )
+        else:
+            totals, accepted = _anchor_refine(
+                full_all.map(lambda x: x[0]), full_all.map(lambda x: x[1:]), totals,
+                r.anchor_stages, 1.0, r.gate_radius, r.gate_inlier_keep,
+                r.gate_rmse_blowup, max_points=r.anchor_max_points,
+            )
+    if r.pose_graph and totals.shape[0] >= 2:
+        totals = _pose_graph_refine(full_all, totals, r.anchor_stages, r.pose_graph_skips,
+                                    r.gate_radius, max_points=r.anchor_max_points)
+    return totals, accepted
 
 
 def _assemble_global(originals, totals, converged) -> Cloud:

@@ -7,8 +7,10 @@ absolute MSE -> relative MSE), with ``NO_CORRESPONDENCES`` aborting below
 
 The JAX ``lax.while_loop`` becomes a Python loop whose stop test reads
 one device bool per iteration (one host sync per ICP iteration). The
-colored residual, ``point_plane_mix`` and the sharded (``psum_axis``)
-form are not ported yet (ROADMAP.md Queue A).
+point-to-plane variant takes the colored-ICP rows (Park, Zhou, Koltun
+2017) when the config's ``color_weight`` > 0 and the target carries
+intensity gradients (``Cloud.cgrad``), and ``point_plane_mix``. The
+sharded (``psum_axis``) form is not ported yet (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import ICPConfig
+from rspc_tpu_torch.ops.colorgrad import intensity
 from rspc_tpu_torch.ops.transform import apply_transform
 from rspc_tpu_torch.ops.umeyama import _homogeneous, _rodrigues, plane_fit, rigid_fit
 from rspc_tpu_torch.registration.bufferops import _stride_cloud
@@ -88,11 +91,6 @@ def icp_align(
     init_guess: torch.Tensor | None = None,
 ) -> ICPResult:
     """Align ``src`` onto ``tgt`` (PCL ``icp.align(output, guess)``)."""
-    if config.color_weight > 0.0 or config.point_plane_mix > 0.0:
-        raise NotImplementedError(
-            "colored ICP and point_plane_mix are not ported yet "
-            "(ROADMAP.md Queue A)"
-        )
     dev, dtype = src.xyz.device, src.xyz.dtype
     final_t = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
                else init_guess.to(dtype))
@@ -103,6 +101,10 @@ def icp_align(
             "point_to_plane ICP needs a target cloud with normals "
             "(edge clouds carry them; see extract_edge_features)"
         )
+    colored = p2l and config.color_weight > 0.0 and tgt.cgrad is not None
+    if colored:
+        i_src = intensity(src.rgb).to(dtype)  # pose-invariant
+        i_tgt = intensity(tgt.rgb).to(dtype)
     max_d2 = config.max_correspondence_distance**2
     rot_thresh = 1.0 - config.transformation_epsilon
     # prev_mse seed: PCL starts at +max; 1e18 keeps 1/prev normal (see
@@ -131,7 +133,20 @@ def icp_align(
                 w_fit = w * torch.clamp(
                     config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0
                 )
-            t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit)
+            color_kw = {}
+            if colored:
+                g_m = tgt.cgrad.index_select(0, idx.long())
+                di = i_tgt.index_select(0, idx.long()) - i_src
+                w_c = w * config.color_weight
+                if config.color_huber_delta is not None:
+                    r_c = ((src_t - tgt_m) * g_m).sum(-1) + di
+                    w_c = w_c * torch.clamp(
+                        config.color_huber_delta / torch.clamp(r_c.abs(), min=1e-12),
+                        max=1.0,
+                    )
+                color_kw = dict(cgrad=g_m, color_resid=di, color_weights=w_c)
+            t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit,
+                              point_mix=config.point_plane_mix, **color_kw)
             t_inc = _trust_region(t_inc, src_t, src.valid,
                                   config.max_correspondence_distance)
         else:

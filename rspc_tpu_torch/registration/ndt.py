@@ -14,9 +14,11 @@ and the closed-form first and second derivatives of
 
 The Newton ``while_loop`` and the safeguarded More-Thuente line search
 become Python loops; each stop test reads one device bool (one host sync
-per Newton iteration and one per line-search trial). Not ported yet
-(ROADMAP.md Queue A): the PCL-exact line search, the compact-cell sweep
-(``sweep_cells``) and the sharded form.
+per Newton iteration and one per line-search trial). ``sweep_cells=-1``
+(auto) resolves as in the JAX package: the exact gather path for the 7-
+and 1-cell neighbourhoods. Not ported yet (ROADMAP.md Queue A): the
+PCL-exact line search, the compact-cell sweep (a positive resolved
+``sweep_cells``) and the sharded form.
 """
 
 from __future__ import annotations
@@ -251,12 +253,21 @@ def _neighborhood_offsets(k: int) -> np.ndarray:
     raise ValueError("neighborhood must be 27, 7, or 1")
 
 
+def _resolve_sweep_cells(config: NDTConfig) -> int:
+    """``sweep_cells`` with -1 (auto) resolved as the JAX package does:
+    512 compact cells for the 27-cell neighbourhood, else 0 (the exact
+    gather path)."""
+    if config.sweep_cells >= 0:
+        return config.sweep_cells
+    return 512 if config.neighborhood == 27 else 0
+
+
 def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig):
     """Returns (objective, lookup, fixed_objective, fixed_value_grad,
     fixed_value_grad_hess) with the JAX package's contracts: f(p) =
     -score(p), minimized by Newton; ``lookup(p)`` freezes the
     neighbourhood at pose p."""
-    if config.sweep_cells != 0:
+    if _resolve_sweep_cells(config) > 0:
         raise NotImplementedError(
             "the compact-cell NDT sweep is not ported yet (ROADMAP.md Queue A)"
         )

@@ -47,13 +47,13 @@ from rspc_tpu_torch.registration.anchor import _refine_step
 from rspc_tpu_torch.registration.bufferops import (
     _as_unorganized,
     _block_append,
+    _rigid_inverse,
     merge_append,
 )
 from rspc_tpu_torch.registration.chainscan import (
-    _anchor_first,
+    _anchor_stages,
     _assemble_global,
     _chain_scan,
-    _check_refine,
     _phase1_prepare,
     _prepare_full_down,
     _stack,
@@ -134,22 +134,12 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         self._full_down: Optional[List[Cloud]] = None
         self._out = None
 
-    def _check_ported(self) -> None:
-        cfg = self.config
-        _check_refine(cfg.refine)
-        if cfg.coarse_warm_start or cfg.rescue_inlier_frac > 0.0:
-            raise NotImplementedError(
-                "the warm start and the rescue stage are not ported yet "
-                "(ROADMAP.md Queue A: robust_config)"
-            )
-
     def registration(self, clouds: Sequence) -> Cloud:
         """The template of ``TwoPhaseRegistrationScheme`` plus the refine
         stage's clouds: phase 1 (batched for organized frames of one
         shape), then ``global_registration``."""
         cfg = self.config
         r = cfg.refine
-        self._check_ported()
         self._full_down = None
         self.anchor_accepted = None
         if r.enabled and not all(isinstance(c, OrganizedCloud) for c in clouds):
@@ -163,7 +153,7 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         if r.enabled and self._full_down is None:
             self._full_down = [
                 _prepare_full_down(c, *estimate_normals(c, cfg.edge), r.leaf_size,
-                                   r.max_points, r.decimate, r.normal_purity)
+                                   r.max_points, r.decimate, r.normal_purity, r.color)
                 for c in clouds
             ]
         return self.global_registration(
@@ -187,7 +177,7 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         r = self.config.refine
         feats, full = _phase1_prepare(
             list(clouds), self.config.edge, r.leaf_size, r.max_points, r.enabled,
-            r.decimate, r.normal_purity,
+            r.decimate, r.normal_purity, r.color,
         )
         if r.enabled:
             self._full_down = [full.map(lambda x: x[i]) for i in range(len(clouds))]
@@ -234,7 +224,6 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         ``_chain_scan`` when ``use_scan`` and the clouds are uniform, else
         the per-frame loop."""
         cfg = self.config
-        self._check_ported()
         edges = [c[0] for c in clouds]
         originals = [c[1] for c in clouds]
         uniform = (
@@ -248,12 +237,12 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         return self._global_registration_loop(edges, originals)
 
     def _anchor(self, totals):
-        """The anchor refinement against frame 0 when the config asks for
-        it: (totals, accepted or None)."""
-        r = self.config.refine
-        if not (r.enabled and r.anchor_to_first):
+        """The refinements after the chain that the config asks for (the
+        anchor against frame 0 or the progressive map, the pose graph):
+        (totals, accepted or None)."""
+        if not self.config.refine.enabled:
             return totals, None
-        return _anchor_first(_stack(self._full_down), totals, r)
+        return _anchor_stages(_stack(self._full_down), totals, self.config.refine)
 
     def _global_registration_scan(self, edges: List[Cloud],
                                   originals: List[Cloud]) -> Cloud:
@@ -267,9 +256,11 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
             self._guesses(n, edges[0].device), self.use_ndt_coarse, cfg.ndt,
             cfg.icp, r.stages, cfg.voxel.leaf_size, cfg.voxel.max_points,
             cfg.voxel.max_points * n, r.max_points * n, cfg.coarse_guard_cap,
-            r.accept_margin,
+            r.accept_margin, cfg.coarse_warm_start, cfg.rescue_inlier_frac,
+            cfg.rescue_cap, cfg.rescue_iterations,
         )
         out["features"] = stacked
+        out["full_down"] = _stack(self._full_down) if r.enabled else None
         self._out = out
         self.results = list(zip(out["coarse"], out["fine"]))
         self.refine_results = out["refine"]
@@ -286,7 +277,8 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
     def _global_registration_loop(self, edges: List[Cloud],
                                   originals: List[Cloud]) -> Cloud:
         """The per-frame loop (``use_scan=False``): one pair step at a
-        time, each merge decided on the host by ``bool(fine.converged)``."""
+        time, each merge decided on the host by ``bool(fine.converged)``;
+        the warm start's local correction updates under the same test."""
         cfg = self.config
         r = cfg.refine
         n = len(edges)
@@ -298,7 +290,8 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         # edge-0.pcd holds the downsampled cloud
         target0 = voxel_downsample(edges[0], cfg.voxel.leaf_size, voxel_cap)
         target = merge_append(
-            Cloud.empty(voxel_cap * n, dev, with_normal=target0.normal is not None),
+            Cloud.empty(voxel_cap * n, dev, with_normal=target0.normal is not None,
+                        with_cgrad=target0.cgrad is not None),
             target0,
         )
         global_cloud = merge_append(
@@ -313,18 +306,29 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
         self._dump_edges(edges, None)
 
         self.results, self.refine_results, totals = [], [], []
+        self._out = None
         eye = torch.eye(4, dtype=torch.float32, device=dev)
+        prev_total = c_local = eye
+        warm = cfg.coarse_warm_start
+        robust_kw = dict(rescue_thresh=cfg.rescue_inlier_frac, rescue_cap=cfg.rescue_cap,
+                         rescue_iters=cfg.rescue_iterations)
         for idx in range(1, n):
-            guess = guesses[idx - 1]
+            guess = raw_guess = guesses[idx - 1]
+            if warm:
+                # the constant-velocity prediction (see _chain_scan)
+                rel_g = (guesses[0] if idx == 1
+                         else _rigid_inverse(guesses[idx - 2]) @ guesses[idx - 1])
+                guess = prev_total @ rel_g @ c_local
+            robust_kw["guard_fallback"] = raw_guess if warm else None
             if self.use_ndt_coarse:
                 coarse, fine, fine_aligned = _ndt_pair_step(
                     target, edges[idx], guess, cfg.ndt, cfg.icp,
-                    cfg.voxel.leaf_size, voxel_cap, cfg.coarse_guard_cap,
+                    cfg.voxel.leaf_size, voxel_cap, cfg.coarse_guard_cap, **robust_kw,
                 )
             else:
                 coarse, fine, fine_aligned = _icp_pair_step(
                     target, edges[idx], guess, cfg.icp, cfg.voxel.leaf_size,
-                    voxel_cap, cfg.coarse_guard_cap,
+                    voxel_cap, cfg.coarse_guard_cap, **robust_kw,
                 )
             self.results.append((coarse, fine))
             total = fine.transform @ coarse.transform
@@ -338,7 +342,14 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
                 delta = torch.where(accepted, ref.transform, eye)
                 fine_aligned = apply_transform_cloud(delta, fine_aligned)
             totals.append(total)
-            if bool(fine.converged):  # host sync: the loop path's merge test
+            converged = bool(fine.converged)  # host sync: the loop path's merge test
+            if warm:
+                # local correction gated on convergence, the prediction
+                # anchor ungated (see _chain_scan)
+                if converged:
+                    c_local = _rigid_inverse(rel_g) @ _rigid_inverse(prev_total) @ total
+                prev_total = total
+            if converged:
                 target = merge_append(target, fine_aligned)
                 if r.enabled:
                     target_full = merge_append(

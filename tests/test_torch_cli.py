@@ -161,12 +161,32 @@ def test_all_matches_the_jax_cli(recording, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("preset", ["robust", "auto"])
-def test_robust_and_auto_presets_name_the_roadmap(in_tmp, capsys, preset):
-    assert run(["--registration", "t", "2", "--preset", preset]) == 1
-    assert "ROADMAP.md Queue A step 4" in capsys.readouterr().err
-    assert run(["--all", "3", "out", f"--preset={preset}"]) == 1
-    assert "ROADMAP.md Queue A step 4" in capsys.readouterr().err
-    assert not os.path.exists("dataset")
+def test_robust_and_auto_presets_name_the_roadmap(in_tmp, recording, capsys, preset):
+    """``--preset robust`` (``robust_config(anchor_mode="map")``) and
+    ``--preset auto`` (``auto_register``), which used to exit 1 naming
+    ROADMAP.md, run: ``--registration`` writes what the same scheme
+    returns through the API, bit for bit, and ``--all`` registers the
+    recording with the IMU thetas (no edge PCDs: the NDT scheme writes
+    none)."""
+    from rspc_tpu_torch.presets import robust_config
+    from rspc_tpu_torch.registration.auto import auto_register
+
+    seq = SyntheticSequence(n_frames=2, yaw_step=-0.1, intr=Intrinsics.simple(80, 60))
+    save_dataset_clouds("t", seq.clouds(device="cpu"), "dataset")
+    assert run(["--registration", "t", "2", "--preset", preset]) == 0
+    out = capsys.readouterr().out
+    assert ("auto preset: selected" in out) == (preset == "auto")
+    clouds = load_dataset_clouds("t", 2, "dataset", device="cpu")
+    if preset == "robust":
+        want = NDTEdgeBasedRegistration(config=robust_config(anchor_mode="map")).registration(
+            clouds)
+    else:
+        want = auto_register(clouds).global_cloud
+    back = load_pcd("dataset/t-registration", device="cpu")
+    assert torch.equal(back.xyz, want.xyz[want.valid])
+    assert run(["--all", "3", "out", recording, f"--preset={preset}"]) == 0
+    assert sorted(os.listdir("dataset"))[:2] == ["out.pcd", "t-0.pcd"]
+    assert load_pcd("dataset/out.pcd", device="cpu").xyz.shape[0] > 1000
 
 
 def test_preset_flag_parsing(in_tmp, monkeypatch):

@@ -16,8 +16,10 @@ import pytest
 import rspc_tpu.config as jcfg
 import rspc_tpu_torch.config as tcfg
 from rspc_tpu.presets import north_star_config as j_north_star
+from rspc_tpu.presets import robust_config as j_robust
 from rspc_tpu_torch.interop import config_from_dict
 from rspc_tpu_torch.presets import north_star_config as t_north_star
+from rspc_tpu_torch.presets import robust_config as t_robust
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CLASSES = [
@@ -46,6 +48,22 @@ def test_every_default_equal(name):
 
 def test_north_star_preset_equal():
     assert dataclasses.asdict(j_north_star()) == dataclasses.asdict(t_north_star())
+
+
+# every combination the auto ladder and the CLI build (and the defaults)
+ROBUST_KW = [
+    {},
+    {"anchor_mode": "map"},
+    {"anchor_mode": "map", "color": True},
+    {"anchor_mode": "map", "pose_graph": True},
+    {"anchor_mode": "first", "pose_graph": True, "color": True, "color_weight": 0.5},
+]
+
+
+@pytest.mark.parametrize("kw", ROBUST_KW, ids=lambda kw: ",".join(kw) or "default")
+def test_robust_preset_equal(kw):
+    assert dataclasses.asdict(j_robust(**kw)) == dataclasses.asdict(t_robust(**kw))
+    assert config_from_dict(dataclasses.asdict(j_robust(**kw))) == t_robust(**kw)
 
 
 def test_config_from_dict_roundtrip():

@@ -336,17 +336,36 @@ def test_global_registration_scan_branch(clouds, frames, thetas, jax_features, n
     assert err <= TOTALS_TOL, err
 
 
-def test_pair_steps_refuse_the_robust_options(frames):
-    from rspc_tpu_torch.registration.pairsteps import _icp_pair_step, _ndt_pair_step
+def test_pair_steps_refuse_the_robust_options(jax_features):
+    """The pair steps' robust options, which the port used to refuse: the
+    warm start's raw-guess fallback (a third guard hypothesis) and the
+    gated rescue, on the JAX package's edge clouds of frames 0 and 1
+    from the static guess, against the JAX package's pair steps (coarse
+    and fine transforms within 5e-4, the same convergence)."""
+    from rspc_tpu.registration import pairsteps as jps
+    from rspc_tpu_torch.registration import pairsteps as tps
 
-    cfg = config_from_dict(dataclasses.asdict(_small_config()))
-    edge = tedges.extract_edge_features(frames[0], cfg.edge)
-    eye = torch.eye(4)
-    for kw in ({"guard_fallback": eye}, {"rescue_thresh": 0.3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _icp_pair_step(edge, edge, eye, cfg.icp, 0.05, 2048, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _ndt_pair_step(edge, edge, eye, cfg.ndt, cfg.icp, 0.05, 2048, **kw)
+    jcfg = _small_config()
+    cfg = config_from_dict(dataclasses.asdict(jcfg))
+    tgt, src = jax_features[0], jax_features[1]
+    jt, jsrc = (JCloud(**{k: jnp.asarray(v) for k, v in f.items()}) for f in (tgt, src))
+    guess = np.eye(4, dtype=np.float32)
+    guess[[0, 2], [0, 2]], guess[0, 2], guess[2, 0] = np.cos(YAW), np.sin(YAW), -np.sin(YAW)
+    eye = np.eye(4, dtype=np.float32)
+    kw = dict(guard_cap=0.1, rescue_thresh=0.95, rescue_cap=0.1, rescue_iters=8)
+    for name, extra in (("icp", ()), ("ndt", (jcfg.ndt,))):
+        jstep = getattr(jps, f"_{name}_pair_step")
+        tstep = getattr(tps, f"_{name}_pair_step")
+        jc, jf, _ = jstep(jt, jsrc, jnp.asarray(guess), *extra, jcfg.icp, 0.05, 2048,
+                          guard_fallback=jnp.asarray(eye), **kw)
+        textra = (cfg.ndt,) if extra else ()
+        tc, tf, _ = tstep(cloud_from_numpy(tgt), cloud_from_numpy(src), torch.from_numpy(guess),
+                          *textra, cfg.icp, 0.05, 2048, guard_fallback=torch.from_numpy(eye),
+                          **kw)
+        for a, b in ((tc.transform, jc.transform), (tf.transform, jf.transform)):
+            err = np.abs(a.numpy() - np.asarray(b)).max()
+            assert err <= TOTALS_TOL, (name, err)
+        assert bool(tf.converged) == bool(jf.converged)
 
 
 def test_ndt_scheme_writes_no_pcds(port_runs):
@@ -399,18 +418,31 @@ def test_fused_and_loop_paths_agree(own_runs):
 
 
 def test_unported_options_raise(frames):
+    """What the port still refuses, naming ROADMAP.md: NDT's PCL-exact
+    line search and its compact-cell sweep (a positive ``sweep_cells``;
+    -1 resolves to the exact path for these neighbourhoods). The robust
+    options it used to refuse here (``carry_cgrad``, the warm start, the
+    rescue, the map anchor, the pose graph, coloured refine clouds) now
+    run: tests/test_torch_robust*.py hold them against the JAX package."""
     base = config_from_dict(dataclasses.asdict(_small_config()))
     r = dataclasses.replace
     for cfg in (
-        r(base, edge=r(base.edge, carry_cgrad=True)),
-        r(base, coarse_warm_start=True),
-        r(base, rescue_inlier_frac=0.3),
-        r(base, refine=r(base.refine, enabled=True, anchor_to_first=True, anchor_mode="map")),
-        r(base, refine=r(base.refine, enabled=True, pose_graph=True)),
-        r(base, refine=r(base.refine, enabled=True, color=True)),
+        r(base, ndt=r(base.ndt, pcl_exact_line_search=True)),
+        r(base, ndt=r(base.ndt, sweep_cells=64)),
+        r(base, ndt=r(base.ndt, neighborhood=27, sweep_cells=-1)),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.ICPEdgeBasedRegistration(config=cfg).registration(frames)
+            ts.NDTEdgeBasedRegistration(config=cfg).registration(frames)
+    for cfg in (
+        r(base, ndt=r(base.ndt, neighborhood=7, sweep_cells=-1)),
+        r(base, edge=r(base.edge, carry_cgrad=True), coarse_warm_start=True,
+          rescue_inlier_frac=0.3,
+          refine=r(base.refine, enabled=True, anchor_to_first=True, anchor_mode="map",
+                   pose_graph=True, color=True)),
+    ):
+        scheme = ts.NDTEdgeBasedRegistration(config=cfg)
+        assert torch.isfinite(scheme.registration(frames).xyz).all()
+        assert scheme.total_transforms.shape == (N - 1, 4, 4)
 
 
 def test_thetas_must_match_the_frames(frames, thetas):

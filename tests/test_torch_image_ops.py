@@ -74,6 +74,22 @@ def test_conv2d_same_matches(frame):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("size", [3, 5])
+def test_conv2d_same_full_rank_kernel_matches(frame, size):
+    """A kernel that is not rank 1 runs as one convolution of the
+    edge-padded image, against the JAX package's
+    ``lax.conv_general_dilated`` (atol 1e-5 of the output's largest
+    magnitude: f32 sums of nine or 25 products of intensities up to
+    255 round at a few 1e-5 of their scale)."""
+    img = _intensity(frame)
+    kern = np.random.default_rng(size).normal(size=(size, size)).astype(np.float32)
+    assert np.linalg.matrix_rank(kern) == size
+    want = np.asarray(jimage.conv2d_same(jnp.asarray(img), kern))
+    got = timage.conv2d_same(torch.from_numpy(img), kern).numpy()
+    assert got.shape == img.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("shape", [(37, 53), (24, 31, 3)])
 def test_box_sum_and_shift_match(shape):
     rng = np.random.default_rng(3)
@@ -263,7 +279,30 @@ def test_edge_masks_feed_the_batched_hysteresis(frame):
 
 
 def test_unported_edge_classes_raise(frame):
-    """All five label classes are ported; colour gradients on the edge
-    cloud (``carry_cgrad``) are not."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        extract_edge_features(_port_cloud(frame), EdgeConfig(carry_cgrad=True))
+    """All five label classes and the colour gradients on the edge cloud
+    (``carry_cgrad``) are ported: each edge point carries the JAX
+    package's tangent-plane intensity gradient at its pixel, computed on
+    the port's normal image (atol 1e-5; the gradient's validity gates
+    flip at a few pixels where the normals differ in their last bits, so
+    the field itself is held on shared normals in test_torch_robust.py;
+    the pixels and their order as in test_extract_edge_features_matches)."""
+    jedges = importlib.import_module("rspc_tpu.ops.edges")
+    jcg = importlib.import_module("rspc_tpu.ops.colorgrad")
+    cfg = JEdgeConfig(**EDGE, carry_cgrad=True)
+    intensity = jax.jit(lambda rgb: jnp.mean(rgb, axis=-1))(frame.rgb)
+    with jax.disable_jit():
+        edge = jcanny.canny(intensity, cfg.canny_low_threshold, cfg.canny_high_threshold)
+        flat = frame.flatten()
+        sel = edge.reshape(-1) & flat.valid
+        keys = jnp.where(sel, jedges._shuffle_priority(sel.shape[0]), 2**31 - 1)
+        order = np.asarray(jnp.argsort(keys, stable=True))[: cfg.max_edge_points]
+    port = _port_cloud(frame)
+    t_nrm, t_nv = estimate_normals(port, EdgeConfig(**EDGE))
+    cg = np.asarray(jcg.color_gradients(frame, jnp.asarray(t_nrm.numpy()),
+                                        jnp.asarray(t_nv.numpy()))).reshape(-1, 3)[order]
+    got = extract_edge_features(port, EdgeConfig(**EDGE, carry_cgrad=True))
+    v = got.valid.numpy()
+    np.testing.assert_array_equal(v, np.asarray(sel)[order])
+    assert got.cgrad.shape == (EDGE["max_edge_points"], 3)
+    assert (np.abs(cg[v]).sum(-1) > 0).mean() > 0.5
+    np.testing.assert_allclose(got.cgrad.numpy()[v], cg[v], rtol=0, atol=1e-5)

@@ -239,6 +239,22 @@ def test_ndt_align_matches_jax(ndt_pair, neighborhood):
     assert np.abs(got.transform.numpy() - t_true).max() < 2e-2
 
 
+@pytest.mark.parametrize("neighborhood", [7, 1])
+def test_ndt_auto_sweep_cells_matches_jax(ndt_pair, neighborhood):
+    """``sweep_cells=-1`` (auto) resolves to the exact gather path for the
+    7- and 1-cell neighbourhoods in both packages, so the port runs it and
+    agrees with the JAX package as at ``sweep_cells=0``."""
+    js, jt, _ = ndt_pair
+    jcfg = JNDTConfig(dense_grid_dim=16, neighborhood=neighborhood, sweep_cells=-1)
+    want = j_ndt(js, j_build(jt, jcfg), jcfg)
+    tcfg = config_from_dict(dataclasses.asdict(jcfg), NDTConfig)
+    got = ndt_align(_port(js), build_ndt_grid(_port(jt), tcfg), tcfg)
+    err = np.abs(got.transform.numpy() - np.asarray(want.transform)).max()
+    assert err <= 1e-4, err
+    assert abs(int(got.iterations) - int(want.iterations)) <= 1
+    np.testing.assert_allclose(float(got.score), float(want.score), rtol=1e-4)
+
+
 @pytest.mark.parametrize("case", _NDT, ids=[c["name"] for c in _NDT])
 def test_ndt_matches_scipy_golden(case):
     sys.path.insert(0, ROOT)

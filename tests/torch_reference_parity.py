@@ -10,10 +10,33 @@ each package, each pair's max |T_jax - T_port| end to end (each package
 on its own phase 1), and the same with the JAX package's edge clouds fed
 to both packages' ``global_registration`` (the chains alone).
 
+With ``robust``, it runs instead the robust presets on their scenes of
+the robustness matrix (``benchmarks/robustness.py``, seed 0, 10 frames):
+``robust_config(anchor_mode="map")`` on ``partial_overlap``,
+``color=True`` on ``combined`` and ``pose_graph=True`` (skips {1, 2, 3}
+and the closures, IMU thetas) on ``loop_drift``, or ``scene:preset``
+with a preset of ``map``, ``color``, ``graph`` or ``auto``
+(``auto_register``), at 640x480 unless
+``--size=WxH`` says otherwise, the JAX package on the CPU and the port on
+``--device`` (the CPU unless given), printing each package's converged
+count and max |T - T_gt| beside the matrix's record, and max |T_jax -
+T_port| end to end. With ``--edges=port`` the scene is rendered as
+``chip_smoke.py`` renders it (the port's renderer on ``--device``), and
+the JAX package registers the port's CPU edge clouds (equal to its own
+Canny evaluated op by op) beside the port's own run. The JAX package
+takes ten to fifteen minutes per scene at 640x480 on the CPU.
+
+With ``canny``, it counts frame 0's RGB Canny edge pixels of a scene by
+the JAX package's jitted program, by the same evaluated op by op, and by
+the port, and how many pixels differ from the op-by-op edges.
+
 Not a pytest module (the JAX package takes minutes per scheme at this
 size on the CPU). Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py [icp] [ndt]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py canny [--size=WxH] [scene]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py robust [--size=WxH] \
+        [--device=cuda] [--edges=port] [scene[:preset] ...]
 """
 
 import dataclasses
@@ -34,7 +57,11 @@ from rspc_tpu.capture.synthetic import SyntheticSequence  # noqa: E402
 from rspc_tpu.config import CaptureConfig, PipelineConfig  # noqa: E402
 from rspc_tpu.ops.deproject import Intrinsics  # noqa: E402
 from rspc_tpu.registration import schemes as js  # noqa: E402
-from rspc_tpu_torch.interop import cloud_from_numpy, config_from_dict  # noqa: E402
+from rspc_tpu_torch.interop import (  # noqa: E402
+    cloud_from_numpy,
+    cloud_to_numpy,
+    config_from_dict,
+)
 from rspc_tpu_torch.registration import schemes as ts  # noqa: E402
 
 N_FRAMES, YAW_STEP = 10, -0.08
@@ -79,9 +106,6 @@ def main(names) -> int:
     print(f"{N_FRAMES} replayed clouds of {jclouds[0].height}x{jclouds[0].width}",
           flush=True)
 
-    def pair_max(a, b):
-        return np.abs(np.asarray(a) - np.asarray(b)).reshape(N_FRAMES - 1, -1).max(1)
-
     gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
     for name in names:
         jcls, tcls = SCHEMES[name]
@@ -117,5 +141,184 @@ def main(names) -> int:
     return 0
 
 
+# the robust presets by name, and each scene's preset with the matrix's
+# record of max |T - T_gt| (benchmarks/records_matrix_r5_seed0.jsonl)
+PRESETS = {"map": {"anchor_mode": "map"},
+           "color": {"anchor_mode": "map", "color": True},
+           "graph": {"anchor_mode": "map", "pose_graph": True}}
+ROBUST = {"partial_overlap": ("map", 3.636e-3), "combined": ("color", 5.210e-2),
+          "loop_drift": ("graph", 1.753e-2)}
+RECORDS = {("partial_overlap", "map"): 3.636e-3, ("combined", "color"): 5.210e-2,
+           ("combined", "map"): 1.200e-1, ("loop_drift", "graph"): 1.753e-2,
+           ("loop_drift", "map"): 1.936e-2}
+
+
+def robust(args) -> int:
+    """``robust [--size=WxH] [--device=cuda] [scene[:preset] ...]``: the
+    port runs on ``--device`` (the CPU by default), the JAX package on
+    the CPU."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks"))
+    from robustness import scenarios
+
+    from rspc_tpu.presets import robust_config
+
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    width, height = (int(x) for x in opts.get("size", "640x480").split("x"))
+    device = opts.get("device", "cpu")
+    names = [a for a in args if not a.startswith("--")] or list(ROBUST)
+    for item in names:
+        name, _, preset = item.partition(":")
+        preset = preset or ROBUST[name][0]
+        record = RECORDS.get((name, preset), float("nan"))
+        skw = dict(scenarios()[name][0])
+        yaw = skw.pop("yaw_step", YAW_STEP)
+        seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=yaw, seed=0,
+                                intr=Intrinsics.simple(width, height), **skw)
+        jclouds = seq.clouds()
+        frames = [cloud_from_numpy(_np(c, ("xyz", "rgb", "valid")), organized=True,
+                                   device=device) for c in jclouds]
+        cfg = robust_config(**PRESETS.get(preset, {}))
+        guess = {"rads": yaw}
+        if "yaw_schedule" in skw:
+            yaws = skw["yaw_schedule"]
+            closure = {j - i for i in range(N_FRAMES) for j in range(i + 1, N_FRAMES)
+                       if abs(yaws[i] - yaws[j]) < 1e-9}
+            cfg = dataclasses.replace(cfg, refine=dataclasses.replace(
+                cfg.refine, pose_graph_skips=tuple(sorted({1, 2, 3} | closure))))
+            guess = {"thetas": np.asarray(seq.thetas())}
+        gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+        if preset == "auto":
+            auto(name, width, height, device, jclouds, frames, guess, gt)
+            continue
+        if opts.get("edges") == "port":
+            port_edges(name, preset, device, cfg, record)
+            continue
+        totals = {}
+        for side, cls, c, clouds in (
+                ("jax", js.NDTEdgeBasedRegistration, cfg, jclouds),
+                (f"port ({device})", ts.NDTEdgeBasedRegistration,
+                 config_from_dict(dataclasses.asdict(cfg)), frames)):
+            t0 = time.perf_counter()
+            scheme = cls(config=c, **guess)
+            scheme.registration(clouds)
+            t = scheme.total_transforms
+            totals[side] = np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+            conv = [bool(f.converged) for _, f in scheme.results]
+            print(f"{name} {preset} {width}x{height} {side} ({time.perf_counter() - t0:.1f} s): "
+                  f"converged {sum(conv)}/{len(conv)}; max |T - T_gt| "
+                  f"{np.abs(totals[side] - gt).max():.4e} (record {record:.4e}); per pair "
+                  f"{_fmt(pair_max(totals[side], gt))}", flush=True)
+        a, b = totals.values()
+        print(f"{name} {preset}: max |T_jax - T_port| {np.abs(a - b).max():.4e}", flush=True)
+    return 0
+
+
+def port_edges(name, preset, device, cfg, record):
+    """The scene as ``chip_smoke.py`` renders it (the port's renderer on
+    ``device``, 640x480); the port end to end on ``device``, and the JAX
+    package's chain and anchors on the port's CPU edge clouds, which
+    equal the JAX package's Canny evaluated op by op (XLA's jitted
+    program contracts multiply-adds into FMAs and breaks NMS ties
+    otherwise)."""
+    import chip_smoke
+    from rspc_tpu.cloud import Cloud as JCloud
+    from rspc_tpu.cloud import OrganizedCloud as JOrganized
+    from rspc_tpu_torch.ops.edges import extract_edge_features_batch
+
+    seq, clouds, guess, skips = chip_smoke.scenario(name, device)
+    if cfg.refine.pose_graph:
+        cfg = dataclasses.replace(cfg, refine=dataclasses.replace(
+            cfg.refine, pose_graph_skips=skips))
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
+    gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+    frames = [{k: getattr(c, k).cpu().numpy() for k in ("xyz", "rgb", "valid")}
+              for c in clouds]
+    feats, _, _ = extract_edge_features_batch(
+        [cloud_from_numpy(f, organized=True) for f in frames], tcfg.edge)
+    port = ts.NDTEdgeBasedRegistration(config=tcfg, **guess)
+    port.registration(clouds)
+    t0 = time.perf_counter()
+    jguess = {k: np.asarray(v) for k, v in guess.items()}
+    jscheme = js.NDTEdgeBasedRegistration(config=cfg, **jguess)
+    jclouds = [JOrganized(**{k: jax.numpy.asarray(v) for k, v in f.items()}) for f in frames]
+    jscheme.batch_extract_features(jclouds)  # the refine clouds
+    jscheme.global_registration(
+        [(JCloud(**{k: jax.numpy.asarray(v) for k, v in cloud_to_numpy(f).items()}), c.flatten())
+         for f, c in zip(feats, jclouds)])
+    for side, t in ((f"port ({device}) end to end", port.total_transforms.cpu()),
+                    ("jax on the port's edge clouds", jscheme.total_transforms)):
+        print(f"{name} {preset} {side}: max |T - T_gt| {np.abs(np.asarray(t) - gt).max():.4e} "
+              f"(record {record:.4e}); per pair {_fmt(pair_max(t, gt))}", flush=True)
+    print(f"{name} {preset}: jax took {time.perf_counter() - t0:.0f} s", flush=True)
+
+
+def auto(name, width, height, device, jclouds, frames, guess, gt):
+    """``auto_register`` in both packages: selection, scores, errors."""
+    from rspc_tpu.registration.auto import auto_register as j_auto
+    from rspc_tpu_torch.registration.auto import auto_register as t_auto
+
+    for side, fn, clouds in (("jax", j_auto, jclouds), (f"port ({device})", t_auto, frames)):
+        t0 = time.perf_counter()
+        ar = fn(clouds, **guess)
+        t = ar.total_transforms
+        t = np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+        conv = [bool(f.converged) for _, f in ar.scheme.results]
+        print(f"{name} auto {width}x{height} {side} ({time.perf_counter() - t0:.1f} s): "
+              f"selected {ar.selected}, escalated {ar.escalated}, scores {ar.scores}; "
+              f"converged {sum(conv)}/{len(conv)}; max |T - T_gt| {np.abs(t - gt).max():.4e}",
+              flush=True)
+
+
+def pair_max(a, b):
+    return np.abs(np.asarray(a) - np.asarray(b)).reshape(N_FRAMES - 1, -1).max(1)
+
+
+def canny(args) -> int:
+    """``canny [--size=WxH] [scene]``: frame 0's RGB Canny edges (inside
+    the valid pixels) by the JAX package's jitted program, by the same
+    evaluated op by op (``jax.disable_jit``), and by the port."""
+    import importlib
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmarks"))
+    from robustness import scenarios
+
+    from rspc_tpu.config import EdgeConfig
+    from rspc_tpu_torch.config import EdgeConfig as TEdgeConfig
+    from rspc_tpu_torch.ops.canny import _hysteresis
+    from rspc_tpu_torch.ops.edges import _rgb_masks
+
+    jcanny = importlib.import_module("rspc_tpu.ops.canny")
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    width, height = (int(x) for x in opts.get("size", "640x480").split("x"))
+    name = next((a for a in args if not a.startswith("--")), "partial_overlap")
+    skw = dict(scenarios()[name][0])
+    yaw = skw.pop("yaw_step", YAW_STEP)
+    c = SyntheticSequence(n_frames=1, yaw_step=yaw, seed=0,
+                          intr=Intrinsics.simple(width, height), **skw).clouds()[0]
+    cfg = EdgeConfig(edge_types=("rgb_canny",))
+    lo, hi = cfg.canny_low_threshold, cfg.canny_high_threshold
+    intensity = jax.jit(lambda rgb: jnp.mean(rgb, axis=-1))(c.rgb)
+    jit_e = np.asarray(jax.jit(lambda i: jcanny.canny(i, lo, hi))(intensity))
+    with jax.disable_jit():
+        op_e = np.asarray(jcanny.canny(intensity, lo, hi))
+    strong, weak = _rgb_masks(cloud_from_numpy(_np(c, ("xyz", "rgb", "valid")), organized=True),
+                              TEdgeConfig(edge_types=("rgb_canny",)))
+    port_e = _hysteresis(strong[None], weak[None])[0].numpy()
+    v = np.asarray(c.valid)
+    print(f"{name} frame 0 at {width}x{height}: edge pixels jitted {(jit_e & v).sum()}, "
+          f"op by op {(op_e & v).sum()}, port {(port_e & v).sum()}; differing from op by "
+          f"op: jitted {((jit_e != op_e) & v).sum()}, port {((port_e != op_e) & v).sum()}",
+          flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["canny"]:
+        sys.exit(canny(sys.argv[2:]))
+    if sys.argv[1:2] == ["robust"]:
+        sys.exit(robust(sys.argv[2:]))
     sys.exit(main(sys.argv[1:] or list(SCHEMES)))
