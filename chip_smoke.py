@@ -98,7 +98,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      |T_est - T_gt| within max(2 x ref, ref + 2e-3), ref the JAX
      package's record (``benchmarks/records_matrix_r5_seed0.jsonl``) or,
      where the JAX package on the CPU misses it, its CPU figure
-     (``ROBUST_JAX_CPU``; the loop path is held to the record),
+     (``ROBUST_JAX_CPU``),
      each run from counts set to 0 once (the robust path's launches),
      then timed once, with its host syncs, a profile and how often the
      rescue's gate fired; B1 against its plain version at the map
@@ -175,17 +175,10 @@ CLI_VIEW_TIE_FRAC = 1e-3  # --view PNG pixels that may differ from the CPU rende
 ROBUST_RECORDS = {"partial_overlap": 3.636e-3, "combined": 5.210e-2, "loop_drift": 1.753e-2}
 AUTO_RECORDS = {"clean": 3.290e-4, "loop_drift": 1.936e-2}
 # Where the JAX package as it stands misses its record on the CPU at
-# 640x480, a run is gated against that figure instead
-# (tests/torch_reference_parity.py robust; PERF.md section 6). For
-# the robust presets it is the JAX package's chain, anchors and pose
-# graph on the port's own edge clouds (--edges=port), since the
-# partial_overlap chain turns on which of the tied NMS pixels become
-# edges: the port's Canny equals the JAX package's evaluated op by op,
-# while its jitted program (FMA-contracted) differs in 6,223 edge pixels
-# of frame 0, and the JAX package reaches 3.07e-3 on its own jitted edges
-# but 0.488 on the op-by-op ones. For auto it is the JAX package end to
-# end.
-ROBUST_JAX_CPU = {"partial_overlap": 4.884e-1, "combined": 1.093e-1, "loop_drift": 4.215e-2}
+# 640x480, end to end on its own jitted program, a run is gated against
+# that figure instead (tests/torch_reference_parity.py robust; PERF.md
+# section 6); on partial_overlap it meets the record (3.067e-3)
+ROBUST_JAX_CPU = {"combined": 1.031e-1, "loop_drift": 4.717e-2}
 AUTO_JAX_CPU = {"loop_drift": 6.397e-2}
 
 
@@ -1157,13 +1150,11 @@ def phase_robust(dev):
 
     runs = [  # (label, scene, config, record, the JAX package's CPU figure)
         ("robust_map", "partial_overlap", robust_config(anchor_mode="map"),
-         ROBUST_RECORDS["partial_overlap"], ROBUST_JAX_CPU["partial_overlap"]),
+         ROBUST_RECORDS["partial_overlap"], 0.0),
         ("robust_color", "combined", robust_config(anchor_mode="map", color=True),
          ROBUST_RECORDS["combined"], ROBUST_JAX_CPU["combined"]),
         ("robust_graph", "loop_drift", robust_config(anchor_mode="map", pose_graph=True),
          ROBUST_RECORDS["loop_drift"], ROBUST_JAX_CPU["loop_drift"]),
-        # the loop path refines every pair in the chain (ROADMAP.md Queue C):
-        # held to the record itself
         ("robust_map loop path", "partial_overlap",
          dataclasses.replace(robust_config(anchor_mode="map"), use_scan=False),
          ROBUST_RECORDS["partial_overlap"], 0.0),

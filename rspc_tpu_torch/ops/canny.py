@@ -25,8 +25,9 @@ from rspc_tpu_torch import cuda_build
 from rspc_tpu_torch.ops.image import (
     SOBEL_X,
     SOBEL_Y,
-    conv2d_same,
+    _pad_edge_hw,
     gaussian_kernel_3x3,
+    separable_taps,
     shift2d,
     shift_hw,
 )
@@ -180,20 +181,62 @@ def _hysteresis(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
     return _hysteresis_plain(strong, weak)
 
 
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32, as a fused multiply-add does
+    (the product of two f32 values is exact in f64)."""
+    return (a.double() * b + c.double()).float()
+
+
+def _contracted_sum(terms) -> torch.Tensor:
+    """The sum of ``k * x`` over ``(k, x)`` terms in order, with the
+    multiply-adds contracted as the JAX package's jitted program contracts
+    them: of the first two products, the one by a negative tap is rounded
+    and the other fused (the first when the signs agree); every later
+    product is fused into the running sum. This is XLA's choice on the
+    CPU, bit for bit, for the batched Canny of rendered 640x480 frames;
+    the program around it can change the choice, and with it a few tens
+    of edge pixels per frame."""
+    (k0, x0), (k1, x1) = terms[:2]
+    if k0 < 0 <= k1:
+        (k0, x0), (k1, x1) = (k1, x1), (k0, x0)
+    acc = _fma(x0, k0, x1 * k1)
+    for k, x in terms[2:]:
+        acc = _fma(x, k, acc)
+    return acc
+
+
+def _conv_contracted(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """``ops/image.py::conv2d_same`` of ``[H, W]`` with a rank-1 kernel,
+    each pass's taps summed by :func:`_contracted_sum`."""
+    kv, kr = separable_taps(kernel)
+    h, w = img.shape
+    p = _pad_edge_hw(img, len(kv) // 2, len(kr) // 2)
+    t = _contracted_sum([(float(k), p[i:i + h, :]) for i, k in enumerate(kv) if k != 0.0])
+    return _contracted_sum([(float(k), t[:, j:j + w]) for j, k in enumerate(kr) if k != 0.0])
+
+
 def canny_masks(intensity: torch.Tensor, low: float, high: float):
     """(strong, weak) bool ``[H, W]`` after smoothing, Sobel, magnitude
-    and NMS: everything of Canny before the hysteresis."""
-    smoothed = conv2d_same(intensity, gaussian_kernel_3x3(1.0))
-    gx = conv2d_same(smoothed, SOBEL_X)
-    gy = conv2d_same(smoothed, SOBEL_Y)
+    and NMS: everything of Canny before the hysteresis.
+
+    The smoothing, the Sobel passes and the magnitude round as the JAX
+    package's jitted program does, multiply-adds fused: NMS keeps a pixel
+    that ties its neighbour, and on flat synthetic texture exact ties are
+    common, so how the arithmetic rounds decides which side of a ramp
+    becomes the edge (evaluated op by op, both sides stay and the edges
+    are about 10% thicker on the robustness matrix's scenes)."""
+    smoothed = _conv_contracted(intensity, gaussian_kernel_3x3(1.0))
+    gx = _conv_contracted(smoothed, SOBEL_X)
+    gy = _conv_contracted(smoothed, SOBEL_Y)
     return canny_from_gradients_masks(gx, gy, low, high)
 
 
 def canny_from_gradients_masks(gx, gy, low: float, high: float, valid=None):
     """(strong, weak) of Canny's NMS and double threshold on gradient
     images given from outside, ``[H, W]`` or ``[n, H, W]``; ``valid``
-    zeroes the magnitude where it is False."""
-    mag = torch.sqrt(gx * gx + gy * gy)
+    zeroes the magnitude where it is False. The magnitude fuses ``gx *
+    gx`` into the sum, as the JAX package's jitted program does."""
+    mag = torch.sqrt(_fma(gx, gx, gy * gy))
     if valid is not None:
         mag = torch.where(valid, mag, 0.0)
     mag_nms = torch.where(_nms(mag, gx, gy), mag, 0.0)

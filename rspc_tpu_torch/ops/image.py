@@ -25,18 +25,27 @@ def conv2d_same(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     then columns, zero taps skipped), so results agree to the last few
     ulps; any other kernel as one ``conv2d`` of the padded image (TF32
     stays off, ``rspc_tpu_torch/__init__.py``)."""
-    kn = np.asarray(kernel, np.float64)
-    kh, kw = kn.shape
+    kh, kw = np.shape(kernel)
     h, w = img.shape
     p = _pad_edge_hw(img, kh // 2, kw // 2)
-    u, s, vt = np.linalg.svd(kn)
-    if not (s[0] > 0 and (len(s) == 1 or s[1] <= 1e-6 * s[0])):
+    taps = separable_taps(kernel)
+    if taps is None:
         k = torch.as_tensor(np.asarray(kernel), dtype=img.dtype, device=img.device)
         return torch.nn.functional.conv2d(p[None, None], k[None, None])[0, 0]
-    kv = (u[:, 0] * np.sqrt(s[0])).astype(np.float32)
-    kr = (vt[0] * np.sqrt(s[0])).astype(np.float32)
+    kv, kr = taps
     t = sum(float(kv[i]) * p[i:i + h, :] for i in range(kh) if kv[i] != 0.0)
     return sum(float(kr[j]) * t[:, j:j + w] for j in range(kw) if kr[j] != 0.0)
+
+
+def separable_taps(kernel: np.ndarray):
+    """The f32 column and row taps ``(kv, kr)`` of a rank-1 kernel, split
+    by SVD as the JAX package splits it, or None for any other kernel."""
+    kn = np.asarray(kernel, np.float64)
+    u, s, vt = np.linalg.svd(kn)
+    if not (s[0] > 0 and (len(s) == 1 or s[1] <= 1e-6 * s[0])):
+        return None
+    return ((u[:, 0] * np.sqrt(s[0])).astype(np.float32),
+            (vt[0] * np.sqrt(s[0])).astype(np.float32))
 
 
 def box_sum(img: torch.Tensor, radius: int) -> torch.Tensor:

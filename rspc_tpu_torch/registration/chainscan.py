@@ -45,7 +45,7 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_grid_origin,
     ndt_grid_update_moments,
 )
-from rspc_tpu_torch.registration.pairsteps import _guarded, _maybe_rescue
+from rspc_tpu_torch.registration.pairsteps import _fine_step, _guarded
 
 
 def _stack(clouds):
@@ -162,11 +162,8 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
             coarse = icp_align(edge_i, target, coarse_icp_cfg, guess)
         coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap,
                           raw_guess if warm_start else None)
-        aligned = apply_transform_cloud(coarse.transform, edge_i)
-        fine = icp_align(aligned, target, icp_cfg)
-        if rescue_thresh > 0.0:
-            fine, _ = _maybe_rescue(fine, apply_transform_cloud(fine.transform, aligned),
-                                    target, icp_cfg, rescue_thresh, rescue_cap, rescue_iters)
+        fine, _ = _fine_step(target, edge_i, coarse, icp_cfg, rescue_thresh, rescue_cap,
+                             rescue_iters)
         total = fine.transform @ coarse.transform
         if refine:
             full_i = full_all.map(lambda x: x[i])

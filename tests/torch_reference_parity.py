@@ -22,13 +22,23 @@ with a preset of ``map``, ``color``, ``graph`` or ``auto``
 count and max |T - T_gt| beside the matrix's record, and max |T_jax -
 T_port| end to end. With ``--edges=port`` the scene is rendered as
 ``chip_smoke.py`` renders it (the port's renderer on ``--device``), and
-the JAX package registers the port's CPU edge clouds (equal to its own
-Canny evaluated op by op) beside the port's own run. The JAX package
+the JAX package registers the port's CPU edge clouds beside the port's
+own run (the chains compared on shared edges). The JAX package
 takes ten to fifteen minutes per scene at 640x480 on the CPU.
 
 With ``canny``, it counts frame 0's RGB Canny edge pixels of a scene by
 the JAX package's jitted program, by the same evaluated op by op, and by
-the port, and how many pixels differ from the op-by-op edges.
+the port, and how many pixels of each differ from the jitted edges.
+
+With ``phase1``, it renders each scene as ``chip_smoke.py`` does (on
+``--device``) and counts, per frame, the edge pixels of the JAX package's
+jitted phase 1 (``batch_extract_features`` under the scene's robust
+preset, on the CPU) and of the port's on ``--device``, and how many each
+has that the other lacks. With ``split``, it runs a scene's robust preset
+in the port on ``--device`` alone and prints, per pair, the rescue gate
+(fired, inliers), the fine stage's inliers, and the chain's and the final
+max |T - T_gt|: run it on the card and on the CPU to find the first pair
+where the two part.
 
 Not a pytest module (the JAX package takes minutes per scheme at this
 size on the CPU). Run from the repository root:
@@ -37,6 +47,8 @@ size on the CPU). Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py canny [--size=WxH] [scene]
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py robust [--size=WxH] \
         [--device=cuda] [--edges=port] [scene[:preset] ...]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py phase1 [--size=WxH] [--device=cuda] [scene ...]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py split [--size=WxH] [--device=cuda] scene
 """
 
 import dataclasses
@@ -217,10 +229,9 @@ def robust(args) -> int:
 def port_edges(name, preset, device, cfg, record):
     """The scene as ``chip_smoke.py`` renders it (the port's renderer on
     ``device``, 640x480); the port end to end on ``device``, and the JAX
-    package's chain and anchors on the port's CPU edge clouds, which
-    equal the JAX package's Canny evaluated op by op (XLA's jitted
-    program contracts multiply-adds into FMAs and breaks NMS ties
-    otherwise)."""
+    package's chain and anchors on the port's CPU edge clouds (which
+    round the Canny gradients as the JAX package's jitted program does,
+    and differ from its edges in a few tens of pixels per frame)."""
     import chip_smoke
     from rspc_tpu.cloud import Cloud as JCloud
     from rspc_tpu.cloud import OrganizedCloud as JOrganized
@@ -251,6 +262,90 @@ def port_edges(name, preset, device, cfg, record):
         print(f"{name} {preset} {side}: max |T - T_gt| {np.abs(np.asarray(t) - gt).max():.4e} "
               f"(record {record:.4e}); per pair {_fmt(pair_max(t, gt))}", flush=True)
     print(f"{name} {preset}: jax took {time.perf_counter() - t0:.0f} s", flush=True)
+
+
+def _scene_preset(name):
+    """The robust preset ``chip_smoke.py`` runs on a scene (JAX package's)."""
+    from rspc_tpu.presets import robust_config
+
+    return robust_config(**PRESETS[ROBUST.get(name, ("map",))[0]])
+
+
+def phase1(args) -> int:
+    """``phase1 [--size=WxH] [--device=cuda] [scene ...]``: per frame, the edge pixels
+    (as xyz rows) of each package's phase 1 on the same frames."""
+    import chip_smoke
+    from rspc_tpu.cloud import OrganizedCloud as JOrganized
+    from rspc_tpu_torch.ops.edges import extract_edge_features_batch
+
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    device = opts.get("device", "cpu")
+    if "size" in opts:
+        chip_smoke.WIDTH, chip_smoke.HEIGHT = (int(x) for x in opts["size"].split("x"))
+    for name in [a for a in args if not a.startswith("--")] or list(ROBUST):
+        _, clouds, _, _ = chip_smoke.scenario(name, device)
+        cfg = _scene_preset(name)
+        feats, _, _ = extract_edge_features_batch(
+            clouds, config_from_dict(dataclasses.asdict(cfg)).edge)
+        jfeats = js.NDTEdgeBasedRegistration(config=cfg, rads=0.0).batch_extract_features(
+            [JOrganized(**{k: jax.numpy.asarray(getattr(c, k).cpu().numpy())
+                           for k in ("xyz", "rgb", "valid")}) for c in clouds])
+        for i, (t, j) in enumerate(zip(feats, jfeats)):
+            tset = {tuple(r) for r in t.xyz[t.valid].cpu().numpy().tolist()}
+            jset = {tuple(r) for r in np.asarray(j.xyz)[np.asarray(j.valid)].tolist()}
+            print(f"{name} frame {i}: edge pixels jax {len(jset)}, port ({device}) "
+                  f"{len(tset)}; only jax {len(jset - tset)}, only port {len(tset - jset)}",
+                  flush=True)
+    return 0
+
+
+def split(args) -> int:
+    """``split [--size=WxH] [--device=cuda] scene``: the port's robust preset on one
+    scene, per pair: the rescue gate, the fine inliers, the chain's and
+    the final errors."""
+    import chip_smoke
+    from rspc_tpu_torch.cloud import OrganizedCloud
+    from rspc_tpu_torch.registration import pairsteps
+
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    device = opts.get("device", "cpu")
+    if "size" in opts:
+        chip_smoke.WIDTH, chip_smoke.HEIGHT = (int(x) for x in opts["size"].split("x"))
+    name = next(a for a in args if not a.startswith("--"))
+    seq, clouds, guess, skips = chip_smoke.scenario(name, device)
+    clouds = [OrganizedCloud(xyz=c.xyz, rgb=c.rgb, valid=c.valid) for c in clouds]
+    cfg = _scene_preset(name)
+    if cfg.refine.pose_graph:
+        cfg = dataclasses.replace(cfg, refine=dataclasses.replace(
+            cfg.refine, pose_graph_skips=skips))
+    gates, chain = [], {}
+    rescue_from, chain_scan = pairsteps._rescue_from, ts._chain_scan
+
+    def spied_rescue(cur, target, n_inl, *a, **kw):
+        rel, need = rescue_from(cur, target, n_inl, *a, **kw)
+        gates.append((bool(need), int(n_inl)))
+        return rel, need
+
+    def spied_chain(*a, **kw):
+        chain.update(chain_scan(*a, **kw))
+        return chain
+
+    pairsteps._rescue_from, ts._chain_scan = spied_rescue, spied_chain
+    try:
+        t0 = time.perf_counter()
+        scheme = ts.NDTEdgeBasedRegistration(
+            config=config_from_dict(dataclasses.asdict(cfg)), **guess)
+        scheme.registration(clouds)
+    finally:
+        pairsteps._rescue_from, ts._chain_scan = rescue_from, chain_scan
+    gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+    final = scheme.total_transforms.cpu()
+    print(f"{name} port ({device}, {time.perf_counter() - t0:.0f} s): rescue (fired, "
+          f"inliers) {gates}; fine inliers {[int(f.n_correspondences) for f in chain['fine']]}; "
+          f"chain {_fmt(pair_max(chain['totals'].cpu(), gt))}; final "
+          f"{_fmt(pair_max(final, gt))}, max {np.abs(np.asarray(final) - gt).max():.4e}",
+          flush=True)
+    return 0
 
 
 def auto(name, width, height, device, jclouds, frames, guess, gt):
@@ -310,8 +405,8 @@ def canny(args) -> int:
     port_e = _hysteresis(strong[None], weak[None])[0].numpy()
     v = np.asarray(c.valid)
     print(f"{name} frame 0 at {width}x{height}: edge pixels jitted {(jit_e & v).sum()}, "
-          f"op by op {(op_e & v).sum()}, port {(port_e & v).sum()}; differing from op by "
-          f"op: jitted {((jit_e != op_e) & v).sum()}, port {((port_e != op_e) & v).sum()}",
+          f"op by op {(op_e & v).sum()}, port {(port_e & v).sum()}; differing from the jitted "
+          f"edges: op by op {((op_e != jit_e) & v).sum()}, port {((port_e != jit_e) & v).sum()}",
           flush=True)
     return 0
 
@@ -321,4 +416,8 @@ if __name__ == "__main__":
         sys.exit(canny(sys.argv[2:]))
     if sys.argv[1:2] == ["robust"]:
         sys.exit(robust(sys.argv[2:]))
+    if sys.argv[1:2] == ["phase1"]:
+        sys.exit(phase1(sys.argv[2:]))
+    if sys.argv[1:2] == ["split"]:
+        sys.exit(split(sys.argv[2:]))
     sys.exit(main(sys.argv[1:] or list(SCHEMES)))
