@@ -107,7 +107,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      not escalated) and on ``loop_drift`` (escalated, ``robust_map``),
      held to ``benchmarks/records_auto_fastpath.jsonl`` the same way
      (``AUTO_JAX_CPU``);
-     the other six scenes' selections and scores printed, not gated.
+     the other six scenes' selections and scores printed, not gated;
+ 14. ``serving``: ``parallel/chain.py::batched_registration`` without a
+     mesh at B = 1, 2, 4 sequences of 10 x 640x480 frames
+     (benchmarks/serving.py: yaw -0.08 - 0.01 i rad per frame,
+     ``north_star_config()``, static accumulated-yaw guesses, no global
+     cloud): each sequence's totals equal one ``_registration_fused`` run
+     on it bit for bit, 9/9 converged, the north-star sequence within
+     1e-3 of the truth and the faster yaws within ``SERVE_ERR``;
+     sequences/s is B over the min of 3 timed runs after the counted one,
+     printed with the card's name and power limit;
+ 15. ``scaleout``: NCCL at world size 1 in this process
+     (``points_sharded_registration`` of the north star equals
+     ``_registration_fused`` bit for bit), then two gloo ranks on cuda:0,
+     each a process running ``chip_smoke.py --scaleout-rank`` (gloo
+     all-reduces of CUDA tensors; ``make_mesh`` over ``("points",)``, ``(1,
+     2)`` and ``("data",)``): the sharded NN at 5,120 x 102,400 equal to
+     the unsharded B1 sweep, sharded ICP and NDT within 1e-5 of one rank,
+     the points-sharded north star 9/9 within 1e-3 of the truth and 1e-4
+     of one rank, the data-sharded B = 2 batch equal to the unsharded one;
+     both ranks must agree. Two ranks on one card measure nothing about
+     scale-out: their walls are printed as that.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -180,6 +200,19 @@ AUTO_RECORDS = {"clean": 3.290e-4, "loop_drift": 1.936e-2}
 # section 6); on partial_overlap it meets the record (3.067e-3)
 ROBUST_JAX_CPU = {"combined": 1.031e-1, "loop_drift": 4.717e-2}
 AUTO_JAX_CPU = {"loop_drift": 6.397e-2}
+# serving and scale-out: benchmarks/serving.py's batch sizes; two gloo
+# ranks on the one card; sharded solves vs one rank (f32 sums in another
+# order), the points-sharded chain vs one rank
+SERVE_BATCHES = (1, 2, 4)
+# the faster yaws' accuracy gate: the JAX package's own for its batched
+# registration (tests/test_batched_chain.py, "the batch actually
+# recovered the (different) motions"); yaw -0.11 rad ends 1.094e-3 away,
+# in its single run too
+SERVE_ERR = 0.05
+SCALE_RANKS = 2
+SCALE_TOL = 1e-5
+SCALE_CHAIN_TOL = 1e-4
+SCALE_TIMEOUT_S = 300
 
 
 def log(*a):
@@ -1353,6 +1386,320 @@ def phase_auto(dev, card):
     return launches
 
 
+# ------------------------------------------------------------ serving, scale-out
+
+
+def sequence_batch(dev, yaws):
+    """Sequences of ``N_FRAMES`` 640x480 frames with the given yaws,
+    rendered on ``dev``: (sequences, ``OrganizedCloud`` [B, n, H, W, ...],
+    the static accumulated-yaw guesses f32[B, n-1, 4, 4])."""
+    import torch
+
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
+    from rspc_tpu_torch.cloud import OrganizedCloud
+    from rspc_tpu_torch.ops.deproject import Intrinsics
+
+    seqs = [SyntheticSequence(n_frames=N_FRAMES, yaw_step=y,
+                              intr=Intrinsics.simple(WIDTH, HEIGHT)) for y in yaws]
+    clouds = [s.clouds(device=dev) for s in seqs]
+    stacked = OrganizedCloud(**{k: torch.stack([torch.stack([getattr(c, k) for c in cs])
+                                                for cs in clouds])
+                                for k in ("xyz", "rgb", "valid")})
+    guesses = []
+    for y in yaws:  # benchmarks/serving.py's accumulation
+        g, acc = [], 0.0
+        for _ in range(N_FRAMES - 1):
+            acc += y
+            m = np.eye(4, dtype=np.float32)
+            m[0, 0], m[0, 2], m[2, 0], m[2, 2] = np.cos(acc), np.sin(acc), -np.sin(acc), np.cos(acc)
+            g.append(m)
+        guesses.append(np.stack(g))
+    return seqs, stacked, torch.from_numpy(np.stack(guesses)).to(dev)
+
+
+def frames_of(stacked, i):
+    """Sequence ``i`` of a [B, n, ...] batch as its list of frames."""
+    return [stacked.map(lambda x, f=f: x[i, f]) for f in range(stacked.xyz.shape[1])]
+
+
+def phase_serving(dev, card):
+    """``batched_registration`` (no mesh) at B = 1, 2, 4 sequences of the
+    north-star workload (benchmarks/serving.py: yaw -0.08 - 0.01 i,
+    ``north_star_config()``, static guesses, no global cloud): each
+    sequence's totals equal one ``_registration_fused`` run on it bit for
+    bit and every pair converges; sequence 0 (the north star) within 1e-3
+    of the truth, the faster yaws within ``SERVE_ERR``. Sequences/s is B
+    over the min of 3 timed runs after the counted first. Returns the
+    B = 4 run's launches."""
+    import torch
+
+    from rspc_tpu_torch.parallel import batched_registration
+    from rspc_tpu_torch.presets import north_star_config
+    from rspc_tpu_torch.registration.chainscan import _registration_fused
+
+    config = north_star_config()
+    seqs, stacked, guesses = sequence_batch(dev, [YAW_STEP - 0.01 * i
+                                                  for i in range(max(SERVE_BATCHES))])
+    singles = [_registration_fused(frames_of(stacked, i), guesses[i], config, True)["totals"]
+               for i in range(len(seqs))]
+    rows, launches = [], None
+    for b in SERVE_BATCHES:
+        sub, g = stacked.map(lambda x: x[:b]), guesses[:b]
+
+        def run():
+            out = batched_registration(sub, g, config, use_ndt=True, include_global=False)
+            torch.cuda.synchronize()
+            return out
+
+        out, launches, plain = counted(run)
+        if any(plain.values()) or launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0:
+            raise AssertionError(f"serving B={b} kernels: {launches}, plain {plain}")
+        errs = []
+        for i in range(b):
+            if not torch.equal(out["totals"][i], singles[i]):
+                raise AssertionError(f"serving B={b}: sequence {i}'s totals differ from "
+                                     "its single run")
+            errs.append(float(pair_errs(seqs[i], out["totals"][i]).max()))
+            conv = int(out["converged"][i].sum())
+            gate = MAX_ERR if i == 0 else SERVE_ERR
+            if conv != N_FRAMES - 1 or not errs[-1] < gate:
+                raise AssertionError(f"serving B={b} sequence {i}: converged {conv}/"
+                                     f"{N_FRAMES - 1}, max |T_est - T_gt| {errs[-1]:.3e} "
+                                     f"(gate {gate})")
+        times = []
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        rows.append({"batch": b, "wall_s": min(times), "seq_per_s": b / min(times),
+                     "runs_s": times, "max_err": errs})
+    log(f"serving (batched_registration, no mesh; {card}): {json.dumps(rows)}")
+    log(f"serving launches (B={SERVE_BATCHES[-1]}, one run): {launches}")
+    return launches
+
+
+def phase_scaleout(dev, card):
+    """The sharded paths on the card. NCCL at world size 1 in this
+    process: ``points_sharded_registration`` of the north star equals
+    ``_registration_fused`` bit for bit. Then two gloo ranks in their own
+    processes, both on cuda:0 (``scaleout_rank``): sharded NN, ICP and
+    NDT, the points-sharded chain and the data-sharded batch against
+    their single-rank runs. Returns the sharded calls' launches."""
+    import os
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rspc_tpu_torch.parallel import make_mesh, points_sharded_registration
+    from rspc_tpu_torch.presets import north_star_config
+    from rspc_tpu_torch.registration.chainscan import _registration_fused
+
+    config = north_star_config()
+    seqs, stacked, guesses = sequence_batch(dev, [YAW_STEP])
+    frames = frames_of(stacked, 0)
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, axes=("points",))
+            run = lambda: points_sharded_registration(
+                stacked.map(lambda x: x[0]), guesses[0], config, mesh, include_global=False)
+            (out, launches, plain), first_s = wall(lambda: counted(run))
+            _, sharded_s = wall(run)
+        finally:
+            dist.destroy_process_group()
+        single, single_s = wall(lambda: _registration_fused(frames, guesses[0], config, True))
+        if not torch.equal(out["totals"], single["totals"]) or any(plain.values()):
+            raise AssertionError("NCCL world size 1: the points-sharded chain differs from "
+                                 f"the single-rank run (plain {plain})")
+        log(f"scaleout NCCL world size 1: points_sharded_registration equals "
+            f"_registration_fused bit for bit; walls: first {first_s:.4f} s, then "
+            f"{sharded_s:.4f} s, the single-rank run {single_s:.4f} s; launches {launches}")
+
+        log(f"scaleout gloo: {SCALE_RANKS} ranks on one card (cuda:0), gloo all-reduces of "
+            "CUDA tensors: this shows the sharded paths on the card; its walls measure "
+            "nothing about scale-out")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scaleout-rank", str(r),
+             f"{tmp}/gloo", tmp]) for r in range(SCALE_RANKS)]
+        try:
+            codes = [p.wait(timeout=SCALE_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        if any(codes):
+            raise AssertionError(f"scaleout gloo ranks exited with {codes}")
+        res = []
+        for r in range(SCALE_RANKS):
+            with open(f"{tmp}/rank{r}.pkl", "rb") as f:  # our own ranks wrote these
+                res.append(pickle.load(f))
+    log(f"scaleout gloo: {time.perf_counter() - t0:.2f} s with the ranks' start; rank 0: "
+        f"{json.dumps({k: v for k, v in res[0].items() if k != 'checks'})}")
+    for r in range(1, SCALE_RANKS):
+        if res[r]["checks"] != res[0]["checks"]:
+            raise AssertionError(f"scaleout: rank {r}'s results differ from rank 0's")
+    failed = [k for k, ok in res[0]["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"scaleout gates failed: {failed}")
+    total = {k: launches[k] + sum(x["launches"][k] for x in res) for k in launches}
+    if total["nn_sweep"] <= 0 or total["hysteresis"] <= 0:
+        raise AssertionError(f"scaleout kernels: {total}")
+    return total
+
+
+def scaleout_rank(rank: int, init_file: str, out_dir: str) -> None:
+    """One of ``SCALE_RANKS`` gloo ranks on cuda:0 (``phase_scaleout``):
+    each sharded call against its single-rank run on the same inputs;
+    results, walls and the sharded calls' launches pickled to
+    ``out_dir/rank{rank}.pkl``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.cloud import Cloud
+    from rspc_tpu_torch.config import ICPConfig, NDTConfig
+    from rspc_tpu_torch.ops.nn import nearest_neighbors_cuda
+    from rspc_tpu_torch.parallel import (
+        batched_registration,
+        make_mesh,
+        points_sharded_registration,
+        sharded_icp_align,
+        sharded_ndt_align,
+        sharded_nearest_neighbors,
+    )
+    from rspc_tpu_torch.presets import north_star_config
+    from rspc_tpu_torch.registration.chainscan import _registration_fused
+    from rspc_tpu_torch.registration.icp import icp_align
+    from rspc_tpu_torch.registration.ndt import build_ndt_grid, ndt_align
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    cuda_build.library()  # the parent's build, found by its source hash
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=SCALE_RANKS, rank=rank,
+                            timeout=timedelta(seconds=SCALE_TIMEOUT_S))
+    launches = {k: 0 for k in cuda_build.LAUNCHES}
+    walls, errs, checks = {}, {}, {}
+
+    def sharded(name, fn):
+        """fn's result; its wall and its launches counted as the path's."""
+        torch.cuda.synchronize()
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        for k, v in cuda_build.LAUNCHES.items():
+            launches[k] += v
+        if any(cuda_build.PLAIN_ON_CUDA.values()):
+            raise AssertionError(f"{name}: a plain version ran on CUDA tensors")
+        return out
+
+    try:
+        mesh_p = make_mesh(SCALE_RANKS, axes=("points",))
+        mesh_dp = make_mesh(SCALE_RANKS)
+        mesh_d = make_mesh(SCALE_RANKS, axes=("data",))
+        dims = lambda m: dict(zip(m.mesh_dim_names, m.mesh.shape))
+        checks["meshes"] = (dims(mesh_p), dims(mesh_dp), dims(mesh_d)) == (
+            {"points": 2}, {"data": 1, "points": 2}, {"data": 2})
+
+        rng = np.random.default_rng(0)  # the main NN shape, live rows in every shard
+        tgt = rng.uniform(-3.0, 3.0, (NN_TGT_CAP, 3)).astype(np.float32)
+        tv = rng.random(NN_TGT_CAP) < 0.5
+        src = (tgt[rng.integers(0, NN_TGT_CAP, NN_SRC)]
+               + rng.normal(0, 0.01, (NN_SRC, 3))).astype(np.float32)
+        sv = rng.random(NN_SRC) < 0.95
+        args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
+        d2, idx = sharded("nn", lambda: sharded_nearest_neighbors(*args, mesh_p))
+        d2_1, idx_1 = nearest_neighbors_cuda(*args)
+        checks["nn equals the unsharded B1 sweep"] = bool(
+            torch.equal(d2, d2_1) and torch.equal(idx, idx_1))
+
+        box = lambda n, seed: _box(n, seed, dev)
+        tgt_c = Cloud(box(NN_TGT_CAP // 4, 1), torch.zeros(NN_TGT_CAP // 4, 3, device=dev),
+                      torch.ones(NN_TGT_CAP // 4, dtype=torch.bool, device=dev))
+        c, s = np.cos(0.02), np.sin(0.02)
+        rot = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=torch.float32, device=dev)
+        src_xyz = box(8192, 2) @ rot.T + torch.tensor([0.01, -0.005, 0.004], device=dev)
+        src_c = Cloud(src_xyz, torch.zeros_like(src_xyz),
+                      torch.ones(8192, dtype=torch.bool, device=dev))
+        icp_cfg = ICPConfig(max_iterations=30, transformation_epsilon=1e-10,
+                            euclidean_fitness_epsilon=1e-12, max_correspondence_distance=0.05)
+        one = icp_align(src_c, tgt_c, icp_cfg).transform
+        for name, mesh in (("icp points", mesh_p), ("icp data x points", mesh_dp)):
+            got = sharded(name, lambda mesh=mesh: sharded_icp_align(src_c, tgt_c, mesh,
+                                                                    icp_cfg).transform)
+            errs[name] = float((got - one).abs().max())
+            checks[f"{name} within {SCALE_TOL}"] = errs[name] <= SCALE_TOL
+
+        wall = np.stack([rng.uniform(0, 3, 4096), rng.uniform(0, 2, 4096),
+                         3.0 + rng.normal(0, 0.01, 4096)], axis=1).astype(np.float32)
+        floor = wall.copy()
+        floor[:, 1] = rng.normal(0, 0.01, 4096)
+        floor[:, 2] = rng.uniform(0, 3, 4096)
+        scene = torch.from_numpy(np.concatenate([wall, floor])).to(dev)
+        full = lambda xyz: Cloud(xyz, torch.zeros_like(xyz),
+                                 torch.ones(xyz.shape[0], dtype=torch.bool, device=dev))
+        ndt_cfg = NDTConfig(dense_grid_dim=16, neighborhood=7, max_iterations=20)
+        grid = build_ndt_grid(full(scene), ndt_cfg)
+        ndt_src = full(scene[::2] + torch.tensor([0.04, 0.0, -0.03], device=dev))
+        got = sharded("ndt", lambda: sharded_ndt_align(ndt_src, grid, mesh_p, ndt_cfg).transform)
+        errs["ndt"] = float((got - ndt_align(ndt_src, grid, ndt_cfg).transform).abs().max())
+        checks[f"ndt within {SCALE_TOL}"] = errs["ndt"] <= SCALE_TOL
+
+        config = north_star_config()
+        seqs, stacked, guesses = sequence_batch(dev, [YAW_STEP - 0.01 * i
+                                                      for i in range(SCALE_RANKS)])
+        out = sharded("points chain", lambda: points_sharded_registration(
+            stacked.map(lambda x: x[0]), guesses[0], config, mesh_p, include_global=False))
+        single = _registration_fused(frames_of(stacked, 0), guesses[0], config, True)["totals"]
+        errs["points chain vs single"] = float((out["totals"] - single).abs().max())
+        errs["points chain vs truth"] = float(pair_errs(seqs[0], out["totals"]).max())
+        checks["points chain 9/9 converged"] = int(out["converged"].sum()) == N_FRAMES - 1
+        checks[f"points chain within {MAX_ERR} of the truth"] = (
+            errs["points chain vs truth"] < MAX_ERR)
+        checks[f"points chain within {SCALE_CHAIN_TOL} of one rank"] = (
+            errs["points chain vs single"] <= SCALE_CHAIN_TOL)
+
+        got = sharded("data batch", lambda: batched_registration(
+            stacked, guesses, config, mesh=mesh_d, include_global=False))
+        want = batched_registration(stacked, guesses, config, include_global=False)
+        checks["data-sharded batch equals the unsharded one"] = all(
+            torch.equal(got[k], want[k]) for k in want)
+        if "jax" in sys.modules or "rspc_tpu" in sys.modules:
+            raise AssertionError("a scale-out rank imported jax or rspc_tpu")
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump({"checks": checks, "errs": errs, "walls_s": walls,
+                     "launches": launches}, f)
+
+
+def _box(n: int, seed: int, dev):
+    """``n`` points on the faces of a unit box 2 m ahead."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    axis = rng.integers(0, 3, n)
+    pts[np.arange(n), axis] = rng.integers(0, 2, n) - 0.5
+    pts[:, 2] += 2.0
+    return torch.from_numpy(pts).to(dev)
+
+
 def read_png(path) -> np.ndarray:
     """The RGB8 pixels of a PNG that ``viz/png.py`` wrote (filter 0 rows)."""
     import struct
@@ -1621,6 +1968,8 @@ def main() -> int:
     per_path["cli"] = timed("cli", phase_cli, dev, card)
     per_path["robust"], robust_nn = timed("robust", phase_robust, dev)
     per_path["auto"] = timed("auto", phase_auto, dev, card)
+    per_path["serving"] = timed("serving", phase_serving, dev, card)
+    per_path["scaleout"] = timed("scaleout", phase_scaleout, dev, card)
     log(f"phase walls (s): {walls}")
     log(f"launches per path (each from counts set to 0): {per_path}")
     nn["max_abs_err"] = max(nn["max_abs_err"], *(v["err"] for v in robust_nn.values()))
@@ -1655,4 +2004,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scaleout-rank"]:
+        scaleout_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -12,6 +12,9 @@ against), rebuilt on PyTorch for one NVIDIA H100:
                        keypoints and RANSAC
   registration/     -- ICP, NDT, anchor refinement, the fused chain,
                        ``NDTEdgeBasedRegistration``
+  parallel/         -- serving and scale-out on ``torch.distributed``:
+                       the sequence batch, the points-sharded chain,
+                       sharded NN, ICP and NDT over a ``DeviceMesh``
   capture/          -- the synthetic RGBD renderer, replay, the v2
                        capture with its visual odometry
   io/               -- PCD files, the dataset directory, the native codec

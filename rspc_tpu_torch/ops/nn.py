@@ -21,7 +21,12 @@ re-score each winner exactly as ``|s - t_win|^2``.
     the static target capacity, padded up to a multiple of
     ``TGT_CHUNK``, exceeds ``STREAM_TARGET`` (:func:`streams`, the JAX
     wrapper's ``MAX_VMEM_TARGET`` rule), else B1's; CPU tensors take the
-    plain sweep. There is no fallback between them.
+    plain sweep. There is no fallback between them;
+  * :func:`nn_scores` -- the same dispatch stopped before the re-score:
+    each source's winning score and index, recentred on a centroid the
+    caller may give. The target-sharded sweep (``parallel/nn.py``) runs
+    it on each shard with the whole target's centroid, so every (source,
+    target) pair scores as in the unsharded sweep.
 
 Indices of the kernel and the plain sweep may differ only at exact
 distance ties (``ops/nn_check.py``'s contract); the kernel gives the
@@ -65,10 +70,25 @@ class SweepPlan(NamedTuple):
     splits: int
 
 
-def _recentre(src_xyz, tgt_xyz, tgt_valid):
-    txyz = torch.where(tgt_valid[:, None], tgt_xyz, 0.0)
-    wsum = tgt_valid.sum(dtype=txyz.dtype)
-    centroid = txyz.sum(dim=0) / torch.clamp(wsum, min=1.0)
+def _zeroed(tgt_xyz, tgt_valid):
+    """The target with invalid rows zeroed (padding slots may hold
+    arbitrary bytes)."""
+    return torch.where(tgt_valid[:, None], tgt_xyz, 0.0)
+
+
+def _centroid(txyz, tgt_valid):
+    return txyz.sum(dim=0) / torch.clamp(tgt_valid.sum(dtype=txyz.dtype), min=1.0)
+
+
+def target_centroid(tgt_xyz, tgt_valid):
+    """The valid target rows' centroid, which the sweeps recentre on."""
+    return _centroid(_zeroed(tgt_xyz, tgt_valid), tgt_valid)
+
+
+def _recentre(src_xyz, tgt_xyz, tgt_valid, centroid=None):
+    txyz = _zeroed(tgt_xyz, tgt_valid)
+    if centroid is None:
+        centroid = _centroid(txyz, tgt_valid)
     return src_xyz - centroid, txyz - centroid
 
 
@@ -80,18 +100,15 @@ def _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score, best_idx, ok):
     return torch.where(ok, dist2, float("inf")), best_idx
 
 
-def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048):
-    """Plain PyTorch sweep: the target in ``chunk``-row tiles holding a
-    running (best score, best index); peak memory one [N, chunk] tile.
-    Tiles after the last valid target row are skipped (they score inf
-    everywhere and cannot win), as the kernels skip dead capacity, and
-    so are invalid sources (their distance is inf, their index 0)."""
+def _plain_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int, centroid=None):
+    """The plain sweep's (best score, best index) per source, before the
+    re-score (an invalid source: score inf, index 0)."""
     if src_xyz.is_cuda:
         cuda_build.PLAIN_ON_CUDA["nn_sweep"] += 1
     n = src_xyz.shape[0]
     rows = tgt_valid.nonzero()
     live = int(rows[-1, 0]) + 1 if rows.numel() else 0
-    s, t = _recentre(src_xyz, tgt_xyz, tgt_valid)
+    s, t = _recentre(src_xyz, tgt_xyz, tgt_valid, centroid)
     keep = src_valid.nonzero()[:, 0]
     s = s.index_select(0, keep)
     best_score = torch.full((keep.shape[0],), float("inf"), device=s.device)
@@ -106,16 +123,27 @@ def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048)
         best_idx = torch.where(upd, (base + c_idx).to(torch.int32), best_idx)
     all_score = torch.full((n,), float("inf"), device=s.device).index_copy(0, keep, best_score)
     all_idx = torch.zeros((n,), dtype=torch.int32, device=s.device).index_copy(0, keep, best_idx)
+    return all_score, all_idx
+
+
+def nearest_neighbors(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048):
+    """Plain PyTorch sweep: the target in ``chunk``-row tiles holding a
+    running (best score, best index); peak memory one [N, chunk] tile.
+    Tiles after the last valid target row are skipped (they score inf
+    everywhere and cannot win), as the kernels skip dead capacity, and
+    so are invalid sources (their distance is inf, their index 0)."""
+    all_score, all_idx = _plain_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk)
     return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, all_score,
                     all_idx, torch.ones_like(src_valid))
 
 
-def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid):
+def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid=None):
     """The kernels' shared pre-processing: check the inputs, recentre on
-    the valid-target centroid, pack the target as float4 (x, y, z,
-    |t|^2 + penalty) with the 1e30 penalty on invalid rows and the
-    sources as float4 (x, y, z, 0), and reduce the live bound (highest
-    valid index + 1) on the device, so nothing syncs with the host."""
+    the valid-target centroid (or ``centroid``), pack the target as
+    float4 (x, y, z, |t|^2 + penalty) with the 1e30 penalty on invalid
+    rows and the sources as float4 (x, y, z, 0), and reduce the live
+    bound (highest valid index + 1) on the device, so nothing syncs with
+    the host."""
     # the kernels read only the packed copies made here, so the inputs
     # need not be contiguous
     src_xyz, src_valid, tgt_xyz, tgt_valid = (
@@ -129,7 +157,7 @@ def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid):
     cuda_build.require_cuda("tgt_valid", tgt_valid, torch.bool, (m,))
     if m == 0:
         raise ValueError("nn sweep: the target has no rows")
-    s, t = _recentre(src_xyz, tgt_xyz, tgt_valid)
+    s, t = _recentre(src_xyz, tgt_xyz, tgt_valid, centroid)
     norm_pen = (t * t).sum(dim=-1) + torch.where(tgt_valid, 0.0, PENALTY)
     tgt4 = torch.cat([t, norm_pen[:, None]], dim=1).contiguous()
     src4 = torch.nn.functional.pad(s, (0, 1)).contiguous()
@@ -191,16 +219,22 @@ def _launch(src4, tgt4, live_hi, best_score, best_idx, p: SweepPlan) -> None:
     cuda_build.check(code, "rspc_nn_sweep")
 
 
-def _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str):
+def _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str, centroid=None):
     """Both routes' launch: :func:`_pack`, :func:`_launch` on
-    :func:`card_plan`, then :func:`_rescore` with the ``< 1e29`` winner
-    check. ``route`` names the launch count."""
-    packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid)
+    :func:`card_plan`; the kernel's (best score, best index) per source.
+    ``route`` names the launch count."""
+    packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid)
     n = packed[0].shape[0]
     if n:
         _launch(*packed, card_plan(n, packed[0].device))
         cuda_build.LAUNCHES[route] += 1
-    best_score, best_idx = packed[3:]
+    return packed[3], packed[4]
+
+
+def _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str):
+    """:func:`_scores_cuda`, then :func:`_rescore` with the ``< 1e29``
+    winner check."""
+    best_score, best_idx = _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route)
     return _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score,
                     best_idx, best_score < PENALTY_WINS)
 
@@ -238,6 +272,23 @@ def streams(m: int) -> bool:
     capacity padded up to a multiple of ``TGT_CHUNK`` exceeds
     ``STREAM_TARGET`` (read at call time, so a caller may move it)."""
     return m + (-m) % TGT_CHUNK > STREAM_TARGET
+
+
+def _route(m: int) -> str:
+    return "nn_sweep_split" if streams(m) else "nn_sweep"
+
+
+def nn_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048, centroid=None):
+    """Each source's winning (score, index) before the re-score, by the
+    dispatch of :func:`nn_sweep`, recentred on ``centroid`` (default the
+    valid-target centroid). The score is ``|t|^2 - 2 s.t`` in recentred
+    coordinates, plus the kernels' 1e30 penalty on invalid targets (the
+    plain sweep: inf); a winner scoring 1e29 or more found no valid
+    target."""
+    if src_xyz.is_cuda:
+        return _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid,
+                            _route(tgt_xyz.shape[0]), centroid)
+    return _plain_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk, centroid)
 
 
 def nn_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048):

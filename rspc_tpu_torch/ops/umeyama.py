@@ -7,11 +7,16 @@ steps), with the SVD path only as the reflection / degenerate fallback.
 ``plane_fit`` solves the linearized point-to-plane normal equations with
 eigenvalue-floored 6x6 solves. Both take optional leading batch
 dimensions (``[..., N, 3]`` inputs), which replace the JAX ``vmap``.
+Both take an optional process group (``ops/collectives.py``) over whose
+ranks the pairs are sharded: their additive moments are all-reduced
+before the solve, so every rank returns the same global fit.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rspc_tpu_torch.ops.collectives import psum
 
 
 def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -91,10 +96,11 @@ def rigid_fit_from_moments(sw, ss, sd, m) -> torch.Tensor:
     return _homogeneous(r, t)
 
 
-def rigid_fit(src, dst, weights) -> torch.Tensor:
+def rigid_fit(src, dst, weights, group=None) -> torch.Tensor:
     """Least-squares rigid T with ``T @ src ~= dst`` (PCL
-    TransformationEstimationSVD semantics, no scaling)."""
-    return rigid_fit_from_moments(*fit_moments(src, dst, weights))
+    TransformationEstimationSVD semantics, no scaling). With ``group``
+    the 16 moment scalars are summed over its ranks first."""
+    return rigid_fit_from_moments(*psum(fit_moments(src, dst, weights), group))
 
 
 def _rodrigues(omega: torch.Tensor) -> torch.Tensor:
@@ -165,7 +171,7 @@ def plane_fit_from_moments(h, g) -> torch.Tensor:
 
 
 def plane_fit(src, dst, normal, weights, point_mix: float = 0.0, cgrad=None,
-              color_resid=None, color_weights=None) -> torch.Tensor:
+              color_resid=None, color_weights=None, group=None) -> torch.Tensor:
     """Least-squares rigid transform minimizing point-to-plane error
     (one linearized Gauss-Newton step). Lever arms are taken about the
     weighted source centroid to decouple rotation from translation; the
@@ -177,10 +183,10 @@ def plane_fit(src, dst, normal, weights, point_mix: float = 0.0, cgrad=None,
     centroid. ``point_mix`` > 0 blends in the point-to-point moments,
     constraining directions the normal set leaves unobserved (a mix of
     0 adds exactly zero moments in the JAX package, so skipping the term
-    gives the same bits)."""
+    gives the same bits). With ``group`` the centroid's 4 scalars and then
+    the 42 of the 6x6 system are summed over its ranks."""
     w = weights.to(src.dtype)
-    sw = w.sum(dim=-1)
-    sc = (src * w[..., None]).sum(dim=-2)
+    sw, sc = psum((w.sum(dim=-1), (src * w[..., None]).sum(dim=-2)), group)
     c = sc / torch.clamp(sw, min=1e-12)[..., None]
     s_c, d_c = src - c[..., None, :], dst - c[..., None, :]
     h, g = plane_fit_moments(s_c, d_c, normal, weights)
@@ -193,6 +199,7 @@ def plane_fit(src, dst, normal, weights, point_mix: float = 0.0, cgrad=None,
     if point_mix > 0.0:
         hp, gp = point_fit_moments(s_c, d_c, weights)
         h, g = h + point_mix * hp, g + point_mix * gp
+    h, g = psum((h, g), group)
     t_c = plane_fit_from_moments(h, g)
     r = t_c[..., :3, :3]
     t = t_c[..., :3, 3] + c - (r @ c[..., :, None])[..., 0]

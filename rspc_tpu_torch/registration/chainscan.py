@@ -10,13 +10,19 @@ in-chain refine; ``merge_append``; under ``warm_start`` the
 constant-velocity prediction, under a rescue threshold the gated
 wide-cap rescue), ``_anchor_stages`` the anchor refinement (against
 frame 0, or the progressive map) and the pose graph, and
-``_assemble_global`` the global cloud. The schemes (``schemes.py``) call
-them in that order. The JAX ``lax.scan`` over frames becomes a Python
-loop; the per-frame convergence gate folds into the merge scatters, so
-no host sync decides a merge (the rescue's gate is one sync per pair,
-``pairsteps.py``).
+``_assemble_global`` the global cloud; ``_registration_body`` runs the
+last three in that order and ``_registration_fused`` is phase 1 and the
+body, one sequence's whole registration (the schemes' fused path and
+``parallel/chain.py`` call them). The JAX ``lax.scan`` over frames
+becomes a Python loop; the per-frame convergence gate folds into the
+merge scatters, so no host sync decides a merge (the rescue's gate is
+one sync per pair, ``pairsteps.py``).
 
-Not ported yet: the sharded form (``parallel/*``).
+``group`` (the JAX ``psum_axis``): every pair solve's source (coarse
+NDT or ICP, fine ICP) is capped or strided as on one rank, then sharded
+over the group's ranks (``pairsteps.py::_shard_points``), and the solves
+all-reduce their moments; the guard, the rescue, the refine, the merges,
+the anchor and the pose graph stay replicated.
 """
 
 from __future__ import annotations
@@ -36,7 +42,12 @@ from rspc_tpu_torch.registration.anchor import (
     _pose_graph_refine,
     _refine_step,
 )
-from rspc_tpu_torch.registration.bufferops import _rigid_inverse, merge_append
+from rspc_tpu_torch.registration.bufferops import (
+    _as_unorganized,
+    _rigid_inverse,
+    _stride_cloud,
+    merge_append,
+)
 from rspc_tpu_torch.registration.icp import icp_align
 from rspc_tpu_torch.registration.ndt import (
     ndt_align,
@@ -45,7 +56,7 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_grid_origin,
     ndt_grid_update_moments,
 )
-from rspc_tpu_torch.registration.pairsteps import _fine_step, _guarded
+from rspc_tpu_torch.registration.pairsteps import _fine_step, _guarded, _shard_points
 
 
 def _stack(clouds):
@@ -97,7 +108,7 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
                 target_cap: int, refine_target_cap: int,
                 coarse_guard_cap: float, refine_margin: float = 0.75,
                 warm_start: bool = False, rescue_thresh: float = 0.0,
-                rescue_cap: float = 0.1, rescue_iters: int = 8):
+                rescue_cap: float = 0.1, rescue_iters: int = 8, group=None):
     """The frame chain over stacked edge clouds ``[n, edge_cap]``: per
     pair, the coarse stage from the guess (NDT against the incremental
     moment grid, or ICP against the accumulated target without its
@@ -115,7 +126,11 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
     every pair (gating it froze the prediction at identity on
     edge-starved scenes, which converge 0/9 yet carry accurate totals:
     the JAX package measured three orders of magnitude off on
-    ``low_texture``)."""
+    ``low_texture``).
+
+    ``group``: the coarse and fine solves run on this rank's shard of
+    their source, taken after the single-rank prefix or stride, so the
+    solved population is the single-rank one (see the module docstring)."""
     n = edges_all.valid.shape[0]
     refine = full_all is not None
     edges_down = [
@@ -157,13 +172,24 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
             guess = prev_total @ rel_g @ c_local
         if use_ndt:
             grid = ndt_grid_from_moments(moments, origin, ndt_cfg)
-            coarse = ndt_align(edge_i, grid, ndt_cfg, guess)
+            src_c = edge_i
+            if group is not None:
+                cap_ndt = ndt_cfg.max_source_points
+                if 0 < cap_ndt < src_c.capacity:
+                    # the prefix ndt_align takes on one rank
+                    src_c = src_c.map(lambda x: x[:cap_ndt])
+                src_c = _shard_points(src_c, group)
+            coarse = ndt_align(src_c, grid, ndt_cfg, guess, group=group)
         else:
-            coarse = icp_align(edge_i, target, coarse_icp_cfg, guess)
+            src_c = edge_i
+            if group is not None:
+                src_c = _shard_points(_stride_cloud(src_c, icp_cfg.max_source_points),
+                                      group)
+            coarse = icp_align(src_c, target, coarse_icp_cfg, guess, group=group)
         coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap,
                           raw_guess if warm_start else None)
         fine, _ = _fine_step(target, edge_i, coarse, icp_cfg, rescue_thresh, rescue_cap,
-                             rescue_iters)
+                             rescue_iters, group)
         total = fine.transform @ coarse.transform
         if refine:
             full_i = full_all.map(lambda x: x[i])
@@ -235,3 +261,57 @@ def _assemble_global(originals, totals, converged) -> Cloud:
         valid=torch.cat([m.valid & conv_all[i] for i, m in enumerate(moved)], dim=0),
     )
 
+
+def _registration_body(feats: Cloud, full, originals, guesses, config, use_ndt: bool,
+                       group=None) -> dict:
+    """Everything after phase 1 for one sequence (port of
+    ``rspc_tpu/registration/chainscan.py::_registration_body``): the
+    chain of ``_chain_scan`` on the stacked edge clouds ``feats`` ``[n,
+    edge_cap]`` (the refine clouds ``full`` ``[n, cap]`` in the chain
+    under ``refine.chain``), then the anchor and the pose graph
+    (``_anchor_stages``) and the global cloud from the unorganized
+    ``originals``, each frame merged where its fine ICP converged or the
+    anchor accepted it. ``guesses`` are the ``[n-1, 4, 4]`` initial
+    transforms; ``group`` shards the chain's pair solves only.
+
+    Returns ``_chain_scan``'s dict with ``totals`` after the anchor and
+    ``anchor_accepted`` (None without the anchor), ``features``,
+    ``full_down`` and ``global``."""
+    r = config.refine
+    n = feats.valid.shape[0]
+    out = _chain_scan(
+        feats, full if (r.enabled and r.chain) else None, guesses, use_ndt,
+        config.ndt, config.icp, r.stages, config.voxel.leaf_size,
+        config.voxel.max_points, config.voxel.max_points * n, r.max_points * n,
+        config.coarse_guard_cap, r.accept_margin, config.coarse_warm_start,
+        config.rescue_inlier_frac, config.rescue_cap, config.rescue_iterations,
+        group=group,
+    )
+    totals, accepted = out["totals"], None
+    if r.enabled:
+        totals, accepted = _anchor_stages(full, totals, r)
+    merge_ok = torch.stack([f.converged for f in out["fine"]])
+    if accepted is not None:
+        # anchor-accepted frames are verified against frame 0: merged
+        # even where the fine edge ICP did not converge
+        merge_ok = merge_ok | accepted
+    out.update({"totals": totals, "anchor_accepted": accepted, "features": feats,
+                "full_down": full if r.enabled else None,
+                "global": _assemble_global(originals, totals, merge_ok)})
+    return out
+
+
+def _registration_fused(frames, guesses, config, use_ndt: bool, group=None) -> dict:
+    """One sequence's whole registration (port of
+    ``rspc_tpu/registration/chainscan.py::_registration_fused``): phase 1
+    on the organized ``frames`` (one shape), then
+    :func:`_registration_body`. The JAX package compiles this as one
+    program; here it is the same calls in the same order as the fused
+    path of the edge schemes, so both give the same bits."""
+    r = config.refine
+    feats, full = _phase1_prepare(
+        list(frames), config.edge, r.leaf_size, r.max_points, r.enabled, r.decimate,
+        r.normal_purity, r.color,
+    )
+    return _registration_body(feats, full, [_as_unorganized(f) for f in frames],
+                              guesses, config, use_ndt, group)

@@ -9,8 +9,14 @@ The JAX ``lax.while_loop`` becomes a Python loop whose stop test reads
 one device bool per iteration (one host sync per ICP iteration). The
 point-to-plane variant takes the colored-ICP rows (Park, Zhou, Koltun
 2017) when the config's ``color_weight`` > 0 and the target carries
-intensity gradients (``Cloud.cgrad``), and ``point_plane_mix``. The
-sharded (``psum_axis``) form is not ported yet (ROADMAP.md Queue A).
+intensity gradients (``Cloud.cgrad``), and ``point_plane_mix``.
+
+``group`` (the JAX ``psum_axis``): a process group over whose ranks the
+source is sharded, the target replicated; every source reduction (the
+correspondence count and MSE, the fit moments, the trust region's mean
+and span, the fitness sums) is all-reduced, so every rank takes the same
+branches and returns the same global result (``parallel/``). With no
+group nothing is reduced and the arithmetic is the single-rank one.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import ICPConfig
+from rspc_tpu_torch.ops.collectives import pmax, psum, shard_count
 from rspc_tpu_torch.ops.colorgrad import intensity
 from rspc_tpu_torch.ops.transform import apply_transform
 from rspc_tpu_torch.ops.umeyama import _homogeneous, _rodrigues, plane_fit, rigid_fit
@@ -56,12 +63,18 @@ def _scale_increment(t_inc: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return _homogeneous(_rodrigues(omega), s[..., None] * t_inc[..., :3, 3])
 
 
-def _trust_region(t_inc, src_t, src_valid, max_corr_dist: float):
+def _trust_region(t_inc, src_t, src_valid, max_corr_dist: float, group=None):
     """Scale back an increment that would move some point farther than
-    2x the correspondence cap (extrapolating beyond the matches)."""
+    2x the correspondence cap (extrapolating beyond the matches). With
+    ``group``, the mean is over every rank's rows (the shards hold equal
+    row counts, padding included, as the JAX package counts them) and the
+    span is the ranks' maximum."""
     ang = _rotation_angle(t_inc)
     mean_t = src_t.mean(dim=-2, keepdim=True)  # unmasked row mean
+    if group is not None:
+        mean_t = psum((mean_t,), group)[0] / shard_count(group)
     span_sq = torch.where(src_valid, ((src_t - mean_t) ** 2).sum(-1), 0.0).amax(-1)
+    span_sq = pmax(span_sq, group)
     move = ang * torch.sqrt(span_sq) + torch.linalg.vector_norm(
         t_inc[..., :3, 3], dim=-1
     )
@@ -69,6 +82,38 @@ def _trust_region(t_inc, src_t, src_valid, max_corr_dist: float):
     return torch.where(
         (scale < 1.0)[..., None, None], _scale_increment(t_inc, scale), t_inc
     )
+
+
+def _pcl_state(t_inc, cur_mse, prev_mse, too_few, it: int, config: ICPConfig):
+    """PCL ``DefaultConvergenceCriteria`` after iteration ``it`` (1-based),
+    in PCL's order: too few > iterations > transform > abs > rel."""
+    cos_angle = 0.5 * (t_inc[0, 0] + t_inc[1, 1] + t_inc[2, 2] - 1.0)
+    t_sqr = (t_inc[:3, 3] ** 2).sum()
+    hit_transform = (cos_angle >= 1.0 - config.transformation_epsilon) & (
+        t_sqr <= config.transformation_epsilon
+    )
+    dmse = (cur_mse - prev_mse).abs()
+    hit_abs = dmse < config.mse_threshold_absolute
+    hit_rel = dmse / torch.clamp(prev_mse, min=1e-30) < config.euclidean_fitness_epsilon
+    state = torch.where(hit_rel, REL_MSE, NOT_CONVERGED)
+    state = torch.where(hit_abs, ABS_MSE, state)
+    state = torch.where(hit_transform, TRANSFORM, state)
+    if it >= config.max_iterations:
+        state = torch.full_like(state, ITERATIONS)
+    return torch.where(too_few, NO_CORRESPONDENCES, state).to(torch.int32)
+
+
+def _fitness_stats(src_valid, d2, w, group=None):
+    """(fitness, inlier RMSE, inlier count) at the final pose: PCL's
+    ``getFitnessScore`` (mean squared NN distance over valid sources) and
+    the RMSE over the inliers ``w``, summed over ``group``'s shards."""
+    dtype = d2.dtype
+    fin = torch.where(src_valid & torch.isfinite(d2), d2, 0.0)
+    fit_sum, nv, inl_sum, n_inl = psum(
+        (fin.sum(), src_valid.to(dtype).sum(), torch.where(w > 0, d2, 0.0).sum(),
+         w.sum()), group)
+    fitness = fit_sum / torch.clamp(nv, min=1.0)
+    return fitness, torch.sqrt(inl_sum / torch.clamp(n_inl, min=1.0)), n_inl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,12 +134,17 @@ def icp_align(
     tgt: Cloud,
     config: ICPConfig = ICPConfig(),
     init_guess: torch.Tensor | None = None,
+    group=None,
 ) -> ICPResult:
-    """Align ``src`` onto ``tgt`` (PCL ``icp.align(output, guess)``)."""
+    """Align ``src`` onto ``tgt`` (PCL ``icp.align(output, guess)``).
+    With ``group``, ``src`` is this rank's shard and the
+    ``max_source_points`` stride is not applied here: the caller strides
+    the whole cloud before sharding it (``chainscan.py::_chain_scan``)."""
     dev, dtype = src.xyz.device, src.xyz.dtype
     final_t = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
                else init_guess.to(dtype))
-    src = _stride_cloud(src, config.max_source_points)
+    if group is None:
+        src = _stride_cloud(src, config.max_source_points)
     p2l = config.variant == "point_to_plane"
     if p2l and tgt.normal is None:
         raise ValueError(
@@ -106,7 +156,6 @@ def icp_align(
         i_src = intensity(src.rgb).to(dtype)  # pose-invariant
         i_tgt = intensity(tgt.rgb).to(dtype)
     max_d2 = config.max_correspondence_distance**2
-    rot_thresh = 1.0 - config.transformation_epsilon
     # prev_mse seed: PCL starts at +max; 1e18 keeps 1/prev normal (see
     # the JAX package) while dwarfing any real MSE
     prev_mse = torch.full((), 1e18, dtype=dtype, device=dev)
@@ -121,8 +170,8 @@ def icp_align(
     it = 0
     while True:
         src_t, d2, idx, w = correspondences(final_t)
-        n_corr = w.sum()
-        cur_mse = torch.where(w > 0, d2, 0.0).sum() / torch.clamp(n_corr, min=1.0)
+        n_corr, mse_sum = psum((w.sum(), torch.where(w > 0, d2, 0.0).sum()), group)
+        cur_mse = mse_sum / torch.clamp(n_corr, min=1.0)
         too_few = n_corr < config.min_number_correspondences
         tgt_m = tgt.xyz.index_select(0, idx.long())
         if p2l:
@@ -146,28 +195,14 @@ def icp_align(
                     )
                 color_kw = dict(cgrad=g_m, color_resid=di, color_weights=w_c)
             t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit,
-                              point_mix=config.point_plane_mix, **color_kw)
+                              point_mix=config.point_plane_mix, group=group,
+                              **color_kw)
             t_inc = _trust_region(t_inc, src_t, src.valid,
-                                  config.max_correspondence_distance)
+                                  config.max_correspondence_distance, group)
         else:
-            t_inc = rigid_fit(src_t, tgt_m, w)
+            t_inc = rigid_fit(src_t, tgt_m, w, group)
         it += 1
-
-        cos_angle = 0.5 * (t_inc[0, 0] + t_inc[1, 1] + t_inc[2, 2] - 1.0)
-        t_sqr = (t_inc[:3, 3] ** 2).sum()
-        hit_transform = (cos_angle >= rot_thresh) & (
-            t_sqr <= config.transformation_epsilon
-        )
-        dmse = (cur_mse - prev_mse).abs()
-        hit_abs = dmse < config.mse_threshold_absolute
-        hit_rel = dmse / torch.clamp(prev_mse, min=1e-30) < config.euclidean_fitness_epsilon
-        # PCL's order: too few > iterations > transform > abs > rel
-        state = torch.where(hit_rel, REL_MSE, NOT_CONVERGED)
-        state = torch.where(hit_abs, ABS_MSE, state)
-        state = torch.where(hit_transform, TRANSFORM, state)
-        if it >= config.max_iterations:
-            state = torch.full_like(state, ITERATIONS)
-        state = torch.where(too_few, NO_CORRESPONDENCES, state).to(torch.int32)
+        state = _pcl_state(t_inc, cur_mse, prev_mse, too_few, it, config)
         # on a too-few abort PCL breaks before updating the transform
         final_t = torch.where(too_few, final_t, t_inc @ final_t)
         prev_mse = cur_mse
@@ -179,12 +214,7 @@ def icp_align(
     if config.compute_fitness:
         # getFitnessScore(): mean squared NN distance at the final pose
         _, d2, _, w = correspondences(final_t)
-        fin = torch.where(src.valid & torch.isfinite(d2), d2, 0.0)
-        fitness = fin.sum() / torch.clamp(src.valid.to(dtype).sum(), min=1.0)
-        n_inl = w.sum()
-        inlier_rmse = torch.sqrt(
-            torch.where(w > 0, d2, 0.0).sum() / torch.clamp(n_inl, min=1.0)
-        )
+        fitness, inlier_rmse, n_inl = _fitness_stats(src.valid, d2, w, group)
     else:
         fitness, inlier_rmse = nan, nan
         n_inl = torch.zeros((), dtype=dtype, device=dev)

@@ -16,9 +16,13 @@ The Newton ``while_loop`` and the safeguarded More-Thuente line search
 become Python loops; each stop test reads one device bool (one host sync
 per Newton iteration and one per line-search trial). ``sweep_cells=-1``
 (auto) resolves as in the JAX package: the exact gather path for the 7-
-and 1-cell neighbourhoods. Not ported yet (ROADMAP.md Queue A): the
-PCL-exact line search, the compact-cell sweep (a positive resolved
-``sweep_cells``) and the sharded form.
+and 1-cell neighbourhoods. ``group`` (the JAX ``psum_axis``) shards the
+source over a process group's ranks, the grid replicated: the score, its
+gradient and Hessian are additive over source points, so each
+evaluation ends in one all-reduce of at most 43 scalars and every rank
+runs the same Newton steps (``parallel/ndt.py``). Not ported yet
+(ROADMAP.md Queue A): the PCL-exact line search and the compact-cell
+sweep (a positive resolved ``sweep_cells``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import NDTConfig
+from rspc_tpu_torch.ops.collectives import psum
 from rspc_tpu_torch.ops.eig3 import eigh3
 from rspc_tpu_torch.ops.transform import apply_transform, rotation_matrix
 from rspc_tpu_torch.ops.umeyama import _homogeneous
@@ -262,11 +267,12 @@ def _resolve_sweep_cells(config: NDTConfig) -> int:
     return 512 if config.neighborhood == 27 else 0
 
 
-def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig):
+def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
     """Returns (objective, lookup, fixed_objective, fixed_value_grad,
     fixed_value_grad_hess) with the JAX package's contracts: f(p) =
     -score(p), minimized by Newton; ``lookup(p)`` freezes the
-    neighbourhood at pose p."""
+    neighbourhood at pose p. With ``group`` every value, gradient and
+    Hessian is summed over its ranks' source shards."""
     if _resolve_sweep_cells(config) > 0:
         raise NotImplementedError(
             "the compact-cell NDT sweep is not ported yet (ROADMAP.md Queue A)"
@@ -334,7 +340,7 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig):
 
     def fixed_objective(p, mu, ic6, mask):
         _, _, expt = _common(p, mu, ic6, mask)
-        return d1 * expt.sum()
+        return psum((d1 * expt.sum(),), group)[0]
 
     def fixed_value_grad(p, mu, ic6, mask):
         (be0, be1, be2), _, expt = _common(p, mu, ic6, mask)
@@ -347,7 +353,7 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig):
         m = -mm[1:4, 1:4]
         dr, _ = _rotation_derivatives(p[3:6])
         g_a = torch.einsum("ija,ij->a", dr, m)
-        return f, torch.cat([g_t, g_a])
+        return psum((f, torch.cat([g_t, g_a])), group)
 
     def fixed_value_grad_hess(p, mu, ic6, mask):
         (be0, be1, be2), ii, expt = _common(p, mu, ic6, mask)
@@ -376,7 +382,7 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig):
         )
         hess = torch.cat([torch.cat([htt, hta], dim=1),
                           torch.cat([hta.T, haa], dim=1)], dim=0)
-        return f, grad, hess
+        return psum((f, grad, hess), group)
 
     def objective(p):
         return fixed_objective(p, *lookup(p))
@@ -431,10 +437,14 @@ def ndt_align(
     grid: NDTGrid,
     config: NDTConfig = NDTConfig(),
     init_guess: torch.Tensor | None = None,
+    group=None,
 ) -> NDTResult:
     """Align ``src`` onto the NDT grid (PCL ``ndt.align(output, guess)``);
     stops when the step falls below ``transformation_epsilon`` or at the
-    iteration cap (both report converged, as PCL does)."""
+    iteration cap (both report converged, as PCL does). With ``group``,
+    ``src`` is this rank's shard and the ``max_source_points`` prefix is
+    not taken here: the caller slices the whole cloud before sharding it
+    (``chainscan.py::_chain_scan``)."""
     if config.pcl_exact_line_search:
         raise NotImplementedError(
             "the PCL-exact line search is not ported yet (ROADMAP.md Queue A)"
@@ -443,11 +453,11 @@ def ndt_align(
     guess = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
              else init_guess.to(dtype))
     cap = config.max_source_points
-    if 0 < cap < src.capacity:
+    if 0 < cap < src.capacity and group is None:
         # prefix slice: voxel-downsampled sources arrive in hash-shuffled
         # voxel order, so the first ``cap`` rows are a uniform subset
         src = src.map(lambda x: x[:cap])
-    objective, lookup, _, fvg, fvgh = _make_objective(src, grid, config)
+    objective, lookup, _, fvg, fvgh = _make_objective(src, grid, config, group)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     p = _matrix_to_pose(guess)
     it = 0
@@ -468,7 +478,7 @@ def ndt_align(
         if it >= config.max_iterations or bool(step < config.transformation_epsilon):
             break
     score = -objective(p)
-    n = torch.clamp(src.valid.to(dtype).sum(), min=1.0)
+    n = torch.clamp(psum((src.valid.to(dtype).sum(),), group)[0], min=1.0)
     return NDTResult(
         transform=_pose_to_matrix(p),
         converged=torch.ones((), dtype=torch.bool, device=dev),

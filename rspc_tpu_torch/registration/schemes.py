@@ -53,9 +53,9 @@ from rspc_tpu_torch.registration.bufferops import (
 from rspc_tpu_torch.registration.chainscan import (
     _anchor_stages,
     _assemble_global,
-    _chain_scan,
     _phase1_prepare,
     _prepare_full_down,
+    _registration_body,
     _stack,
 )
 from rspc_tpu_torch.registration.icp import ICPResult, icp_align
@@ -246,33 +246,22 @@ class _EdgeBasedRegistration(TwoPhaseRegistrationScheme):
 
     def _global_registration_scan(self, edges: List[Cloud],
                                   originals: List[Cloud]) -> Cloud:
+        """The fused path: ``chainscan.py::_registration_body`` (the chain,
+        the anchor and pose graph, the global cloud) on the stacked edge
+        and refine clouds."""
         cfg = self.config
-        r = cfg.refine
-        n = len(edges)
-        stacked = _stack(edges)
-        out = _chain_scan(
-            stacked,
-            _stack(self._full_down) if (r.enabled and r.chain) else None,
-            self._guesses(n, edges[0].device), self.use_ndt_coarse, cfg.ndt,
-            cfg.icp, r.stages, cfg.voxel.leaf_size, cfg.voxel.max_points,
-            cfg.voxel.max_points * n, r.max_points * n, cfg.coarse_guard_cap,
-            r.accept_margin, cfg.coarse_warm_start, cfg.rescue_inlier_frac,
-            cfg.rescue_cap, cfg.rescue_iterations,
+        full = _stack(self._full_down) if cfg.refine.enabled else None
+        out = _registration_body(
+            _stack(edges), full, originals, self._guesses(len(edges), edges[0].device),
+            cfg, self.use_ndt_coarse,
         )
-        out["features"] = stacked
-        out["full_down"] = _stack(self._full_down) if r.enabled else None
         self._out = out
         self.results = list(zip(out["coarse"], out["fine"]))
         self.refine_results = out["refine"]
-        totals, self.anchor_accepted = self._anchor(out["totals"])
-        self.total_transforms = totals
+        self.total_transforms = out["totals"]
+        self.anchor_accepted = out["anchor_accepted"]
         self._dump_edges([out["edges_down0"]] + list(edges[1:]), out["target"])
-        merge_ok = torch.stack([f.converged for f in out["fine"]])
-        if self.anchor_accepted is not None:
-            # anchor-accepted frames are verified against frame 0: merged
-            # even where the fine edge ICP did not converge
-            merge_ok = merge_ok | self.anchor_accepted
-        return _assemble_global(originals, totals, merge_ok)
+        return out["global"]
 
     def _global_registration_loop(self, edges: List[Cloud],
                                   originals: List[Cloud]) -> Cloud:
