@@ -113,8 +113,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      (benchmarks/serving.py: yaw -0.08 - 0.01 i rad per frame,
      ``north_star_config()``, static accumulated-yaw guesses, no global
      cloud): each sequence's totals equal one ``_registration_fused`` run
-     on it bit for bit, 9/9 converged, the north-star sequence within
-     1e-3 of the truth and the faster yaws within ``SERVE_ERR``;
+     on it bit for bit, 9/9 converged, each within 1e-3 of the truth or,
+     where the JAX package on the CPU misses 1e-3 on that sequence
+     (yaw -0.11), within max(2 x its figure, its figure + 2e-3)
+     (``SERVE_JAX_CPU``);
      sequences/s is B over the min of 3 timed runs after the counted one,
      printed with the card's name and power limit;
  15. ``scaleout``: NCCL at world size 1 in this process
@@ -204,11 +206,12 @@ AUTO_JAX_CPU = {"loop_drift": 6.397e-2}
 # ranks on the one card; sharded solves vs one rank (f32 sums in another
 # order), the points-sharded chain vs one rank
 SERVE_BATCHES = (1, 2, 4)
-# the faster yaws' accuracy gate: the JAX package's own for its batched
-# registration (tests/test_batched_chain.py, "the batch actually
-# recovered the (different) motions"); yaw -0.11 rad ends 1.094e-3 away,
-# in its single run too
-SERVE_ERR = 0.05
+# the JAX package's max |T - T_gt| on each serving sequence, at 640x480
+# on the CPU through its batched_registration
+# (tests/torch_reference_parity.py serving; PERF.md section 6): it meets
+# 1e-3 on yaws -0.08 to -0.10 and misses it on yaw -0.11, which is then
+# gated as the robust phase gates a missed record
+SERVE_JAX_CPU = (3.534e-4, 4.188e-4, 8.801e-4, 1.0911e-3)
 SCALE_RANKS = 2
 SCALE_TOL = 1e-5
 SCALE_CHAIN_TOL = 1e-4
@@ -1427,8 +1430,9 @@ def phase_serving(dev, card):
     north-star workload (benchmarks/serving.py: yaw -0.08 - 0.01 i,
     ``north_star_config()``, static guesses, no global cloud): each
     sequence's totals equal one ``_registration_fused`` run on it bit for
-    bit and every pair converges; sequence 0 (the north star) within 1e-3
-    of the truth, the faster yaws within ``SERVE_ERR``. Sequences/s is B
+    bit and every pair converges; each sequence within 1e-3 of the truth,
+    or ``record_gate`` of the JAX package's figure where it misses 1e-3
+    (``SERVE_JAX_CPU``). Sequences/s is B
     over the min of 3 timed runs after the counted first. Returns the
     B = 4 run's launches."""
     import torch
@@ -1454,14 +1458,16 @@ def phase_serving(dev, card):
         out, launches, plain = counted(run)
         if any(plain.values()) or launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0:
             raise AssertionError(f"serving B={b} kernels: {launches}, plain {plain}")
-        errs = []
+        errs, gates = [], []
         for i in range(b):
             if not torch.equal(out["totals"][i], singles[i]):
                 raise AssertionError(f"serving B={b}: sequence {i}'s totals differ from "
                                      "its single run")
             errs.append(float(pair_errs(seqs[i], out["totals"][i]).max()))
             conv = int(out["converged"][i].sum())
-            gate = MAX_ERR if i == 0 else SERVE_ERR
+            ref = SERVE_JAX_CPU[i]
+            gate = MAX_ERR if ref < MAX_ERR else record_gate(MAX_ERR, ref)
+            gates.append(gate)
             if conv != N_FRAMES - 1 or not errs[-1] < gate:
                 raise AssertionError(f"serving B={b} sequence {i}: converged {conv}/"
                                      f"{N_FRAMES - 1}, max |T_est - T_gt| {errs[-1]:.3e} "
@@ -1472,7 +1478,7 @@ def phase_serving(dev, card):
             run()
             times.append(time.perf_counter() - t0)
         rows.append({"batch": b, "wall_s": min(times), "seq_per_s": b / min(times),
-                     "runs_s": times, "max_err": errs})
+                     "runs_s": times, "max_err": errs, "gate": gates})
     log(f"serving (batched_registration, no mesh; {card}): {json.dumps(rows)}")
     log(f"serving launches (B={SERVE_BATCHES[-1]}, one run): {launches}")
     return launches

@@ -71,6 +71,14 @@ def shard_rows(x: torch.Tensor, group) -> torch.Tensor:
     return x[i * chunk:(i + 1) * chunk]
 
 
+def shard_cloud(c, group):
+    """This rank's contiguous chunk of a replicated cloud's rows, padded
+    with invalid rows (``shard_rows`` on every field;
+    ``rspc_tpu/registration/chainscan.py::_shard_points``): a solve then
+    sweeps only its chunk and all-reduces the additive moments."""
+    return c.map(lambda x: shard_rows(x, group))
+
+
 def gather_rows(x: torch.Tensor, total: int, group) -> torch.Tensor:
     """Every rank's ``x`` (``k = total / ranks`` rows, rank ``i``'s rows
     ``i*k``) in one ``[total, ...]`` tensor on every rank: each rank

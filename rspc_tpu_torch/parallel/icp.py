@@ -32,11 +32,11 @@ from rspc_tpu_torch.config import ICPConfig
 from rspc_tpu_torch.ops.collectives import (
     gather_rows,
     psum,
+    shard_cloud,
     shard_count,
     shard_index,
     shard_rows,
 )
-from rspc_tpu_torch.ops.colorgrad import intensity
 from rspc_tpu_torch.ops.transform import apply_transform
 from rspc_tpu_torch.ops.umeyama import (
     _homogeneous,
@@ -49,17 +49,13 @@ from rspc_tpu_torch.registration.icp import (
     NO_CORRESPONDENCES,
     NOT_CONVERGED,
     ICPResult,
+    _color_rows,
     _fitness_stats,
+    _huber,
+    _intensities,
     _pcl_state,
 )
 from rspc_tpu_torch.registration.measures import _nn_sweep
-from rspc_tpu_torch.registration.pairsteps import _shard_points
-
-
-def _huber(w, r, delta):
-    if delta is None:
-        return w
-    return w * torch.clamp(delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
 
 
 def _local_icp(src: Cloud, s_int, tgt: Cloud, t_int, guess, config: ICPConfig,
@@ -70,7 +66,6 @@ def _local_icp(src: Cloud, s_int, tgt: Cloud, t_int, guess, config: ICPConfig,
     dev, dtype = src.xyz.device, src.xyz.dtype
     max_d2 = config.max_correspondence_distance**2
     p2l = config.variant == "point_to_plane"
-    colored = p2l and config.color_weight > 0.0
 
     def correspondences(t):
         src_t = apply_transform(t, src.xyz)
@@ -88,19 +83,13 @@ def _local_icp(src: Cloud, s_int, tgt: Cloud, t_int, guess, config: ICPConfig,
         mse_sum = torch.where(w > 0, d2, 0.0).sum()
         if p2l:
             tgt_n = tgt.normal.index_select(0, idx.long())
-            w_fit = _huber(w, ((src_t - tgt_m) * tgt_n).sum(-1), config.huber_delta)
+            w_fit = _huber(w, config.huber_delta, lambda: ((src_t - tgt_m) * tgt_n).sum(-1))
             # the global weighted centroid for the conditioning shift
             sw_c, sc = psum((w_fit.sum(), (src_t * w_fit[:, None]).sum(0)), group)
             c = sc / torch.clamp(sw_c, min=1e-12)
             h6, g6 = plane_fit_moments(src_t - c, tgt_m - c, tgt_n, w_fit)
-            if colored:
-                # photometric rows weigh from the raw mask w, with their
-                # own huber
-                g_m = tgt.cgrad.index_select(0, idx.long())
-                di = t_int.index_select(0, idx.long()) - s_int
-                w_col = _huber(w * config.color_weight,
-                               ((src_t - tgt_m) * g_m).sum(-1) + di,
-                               config.color_huber_delta)
+            if s_int is not None:
+                g_m, di, w_col = _color_rows(src_t, tgt_m, idx, w, tgt, s_int, t_int, config)
                 hc, gc = plane_fit_moments(src_t - c, tgt_m - c, g_m, w_col, offset=di)
                 h6, g6 = h6 + hc, g6 + gc
             h6, g6, n_corr, mse_sum = psum((h6, g6, w.sum(), mse_sum), group)
@@ -135,16 +124,15 @@ def _local_icp(src: Cloud, s_int, tgt: Cloud, t_int, guess, config: ICPConfig,
 
 def _color_inputs(src: Cloud, tgt: Cloud, config: ICPConfig):
     """(source intensities, target intensities) for the colored rows, or
-    (None, None) when the config does not engage them."""
-    if config.variant == "point_to_plane" and config.color_weight > 0.0:
-        if tgt.cgrad is None:
-            raise ValueError(
-                "color_weight > 0 needs a target cloud carrying cgrad "
-                "(ops/colorgrad.py; EdgeConfig.carry_cgrad)"
-            )
-        dtype = src.xyz.dtype
-        return intensity(src.rgb).to(dtype), intensity(tgt.rgb).to(dtype)
-    return None, None
+    (None, None) when the config does not engage them; unlike one rank's
+    ``icp_align``, a colored config needs the target's ``cgrad``."""
+    if (config.variant == "point_to_plane" and config.color_weight > 0.0
+            and tgt.cgrad is None):
+        raise ValueError(
+            "color_weight > 0 needs a target cloud carrying cgrad "
+            "(ops/colorgrad.py; EdgeConfig.carry_cgrad)"
+        )
+    return _intensities(src, tgt, config)
 
 
 def _check_normals(tgt: Cloud, config: ICPConfig) -> None:
@@ -166,7 +154,7 @@ def sharded_icp_align(src: Cloud, tgt: Cloud, mesh, config: ICPConfig = ICPConfi
     s_int, t_int = _color_inputs(src, tgt, config)
     if s_int is not None:
         s_int = shard_rows(s_int, group)
-    return _local_icp(_shard_points(src, group), s_int, tgt, t_int, guess, config, group)
+    return _local_icp(shard_cloud(src, group), s_int, tgt, t_int, guess, config, group)
 
 
 def batched_sharded_icp_align(src: Cloud, tgt: Cloud, guesses: torch.Tensor, mesh,
@@ -192,7 +180,7 @@ def batched_sharded_icp_align(src: Cloud, tgt: Cloud, guesses: torch.Tensor, mes
         src_i, tgt_i = src.map(pick), tgt.map(pick)
         s_i = None if s_int is None else shard_rows(s_int[i], points)
         t_i = None if t_int is None else t_int[i]
-        results.append(_local_icp(_shard_points(src_i, points), s_i, tgt_i, t_i,
+        results.append(_local_icp(shard_cloud(src_i, points), s_i, tgt_i, t_i,
                                   guesses[i].to(src.xyz.dtype), config, points))
     return ICPResult(**{
         f.name: gather_rows(torch.stack([getattr(r, f.name) for r in results]), b, data)

@@ -9,12 +9,13 @@ count may differ by one, as in the JAX package."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import NDTConfig
 from rspc_tpu_torch.registration.ndt import NDTGrid, NDTResult, ndt_align
-from rspc_tpu_torch.registration.pairsteps import _shard_points
 
 
 def sharded_ndt_align(src: Cloud, grid: NDTGrid, mesh, config: NDTConfig = NDTConfig(),
@@ -22,9 +23,9 @@ def sharded_ndt_align(src: Cloud, grid: NDTGrid, mesh, config: NDTConfig = NDTCo
                       axis: str = "points") -> NDTResult:
     """Align ``src`` (every rank passes the whole cloud; each solves on
     its chunk of the rows) onto the replicated ``grid``. As in the JAX
-    package, every source row takes part: ``max_source_points`` is a
-    single-rank prefix the caller takes before sharding, if it wants one."""
-    group = mesh.get_group(axis)
+    package, every source row takes part: ``max_source_points`` does not
+    apply here (slice ``src`` first for a prefix)."""
     guess = (torch.eye(4, dtype=src.xyz.dtype, device=src.device) if init_guess is None
              else init_guess.to(src.xyz.dtype))
-    return ndt_align(_shard_points(src, group), grid, config, guess, group=group)
+    return ndt_align(src, grid, dataclasses.replace(config, max_source_points=0), guess,
+                     group=mesh.get_group(axis))

@@ -20,9 +20,9 @@ one sync per pair, ``pairsteps.py``).
 
 ``group`` (the JAX ``psum_axis``): every pair solve's source (coarse
 NDT or ICP, fine ICP) is capped or strided as on one rank, then sharded
-over the group's ranks (``pairsteps.py::_shard_points``), and the solves
-all-reduce their moments; the guard, the rescue, the refine, the merges,
-the anchor and the pose graph stay replicated.
+over the group's ranks by the solver (``ops/collectives.py::shard_cloud``),
+and the solves all-reduce their moments; the guard, the rescue, the
+refine, the merges, the anchor and the pose graph stay replicated.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ from rspc_tpu_torch.registration.anchor import (
 from rspc_tpu_torch.registration.bufferops import (
     _as_unorganized,
     _rigid_inverse,
-    _stride_cloud,
     merge_append,
 )
 from rspc_tpu_torch.registration.icp import icp_align
@@ -56,7 +55,7 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_grid_origin,
     ndt_grid_update_moments,
 )
-from rspc_tpu_torch.registration.pairsteps import _fine_step, _guarded, _shard_points
+from rspc_tpu_torch.registration.pairsteps import _fine_step, _guarded
 
 
 def _stack(clouds):
@@ -172,20 +171,9 @@ def _chain_scan(edges_all: Cloud, full_all, guesses, use_ndt: bool, ndt_cfg,
             guess = prev_total @ rel_g @ c_local
         if use_ndt:
             grid = ndt_grid_from_moments(moments, origin, ndt_cfg)
-            src_c = edge_i
-            if group is not None:
-                cap_ndt = ndt_cfg.max_source_points
-                if 0 < cap_ndt < src_c.capacity:
-                    # the prefix ndt_align takes on one rank
-                    src_c = src_c.map(lambda x: x[:cap_ndt])
-                src_c = _shard_points(src_c, group)
-            coarse = ndt_align(src_c, grid, ndt_cfg, guess, group=group)
+            coarse = ndt_align(edge_i, grid, ndt_cfg, guess, group=group)
         else:
-            src_c = edge_i
-            if group is not None:
-                src_c = _shard_points(_stride_cloud(src_c, icp_cfg.max_source_points),
-                                      group)
-            coarse = icp_align(src_c, target, coarse_icp_cfg, guess, group=group)
+            coarse = icp_align(edge_i, target, coarse_icp_cfg, guess, group=group)
         coarse = _guarded(coarse, guess, edge_i, target, coarse_guard_cap,
                           raw_guess if warm_start else None)
         fine, _ = _fine_step(target, edge_i, coarse, icp_cfg, rescue_thresh, rescue_cap,

@@ -12,7 +12,9 @@ point-to-plane variant takes the colored-ICP rows (Park, Zhou, Koltun
 intensity gradients (``Cloud.cgrad``), and ``point_plane_mix``.
 
 ``group`` (the JAX ``psum_axis``): a process group over whose ranks the
-source is sharded, the target replicated; every source reduction (the
+source is sharded, the target replicated. Every rank passes the whole
+source; the solver strides it to ``max_source_points`` as on one rank
+and solves on this rank's chunk of the rows. Every source reduction (the
 correspondence count and MSE, the fit moments, the trust region's mean
 and span, the fitness sums) is all-reduced, so every rank takes the same
 branches and returns the same global result (``parallel/``). With no
@@ -27,7 +29,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import ICPConfig
-from rspc_tpu_torch.ops.collectives import pmax, psum, shard_count
+from rspc_tpu_torch.ops.collectives import pmax, psum, shard_cloud, shard_count
 from rspc_tpu_torch.ops.colorgrad import intensity
 from rspc_tpu_torch.ops.transform import apply_transform
 from rspc_tpu_torch.ops.umeyama import _homogeneous, _rodrigues, plane_fit, rigid_fit
@@ -103,6 +105,36 @@ def _pcl_state(t_inc, cur_mse, prev_mse, too_few, it: int, config: ICPConfig):
     return torch.where(too_few, NO_CORRESPONDENCES, state).to(torch.int32)
 
 
+def _huber(w, delta, residual):
+    """``w`` times the Huber IRLS weight of ``residual()``; ``w`` itself
+    when ``delta`` is None."""
+    if delta is None:
+        return w
+    r = residual()
+    return w * torch.clamp(delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
+
+
+def _intensities(src: Cloud, tgt: Cloud, config: ICPConfig):
+    """(source, target) pose-invariant intensities for the colored rows,
+    or (None, None) where the config or the target does not engage them."""
+    if (config.variant == "point_to_plane" and config.color_weight > 0.0
+            and tgt.cgrad is not None):
+        dtype = src.xyz.dtype
+        return intensity(src.rgb).to(dtype), intensity(tgt.rgb).to(dtype)
+    return None, None
+
+
+def _color_rows(src_t, tgt_m, idx, w, tgt: Cloud, i_src, i_tgt, config: ICPConfig):
+    """The colored rows at correspondences ``idx``: (target intensity
+    gradients, intensity residuals, weights from the raw mask ``w`` with
+    their own Huber)."""
+    g_m = tgt.cgrad.index_select(0, idx.long())
+    di = i_tgt.index_select(0, idx.long()) - i_src
+    w_c = _huber(w * config.color_weight, config.color_huber_delta,
+                 lambda: ((src_t - tgt_m) * g_m).sum(-1) + di)
+    return g_m, di, w_c
+
+
 def _fitness_stats(src_valid, d2, w, group=None):
     """(fitness, inlier RMSE, inlier count) at the final pose: PCL's
     ``getFitnessScore`` (mean squared NN distance over valid sources) and
@@ -137,24 +169,21 @@ def icp_align(
     group=None,
 ) -> ICPResult:
     """Align ``src`` onto ``tgt`` (PCL ``icp.align(output, guess)``).
-    With ``group``, ``src`` is this rank's shard and the
-    ``max_source_points`` stride is not applied here: the caller strides
-    the whole cloud before sharding it (``chainscan.py::_chain_scan``)."""
+    With ``group``, every rank passes the whole ``src`` and solves on its
+    shard of the strided rows."""
     dev, dtype = src.xyz.device, src.xyz.dtype
     final_t = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
                else init_guess.to(dtype))
-    if group is None:
-        src = _stride_cloud(src, config.max_source_points)
+    src = _stride_cloud(src, config.max_source_points)
+    if group is not None:
+        src = shard_cloud(src, group)
     p2l = config.variant == "point_to_plane"
     if p2l and tgt.normal is None:
         raise ValueError(
             "point_to_plane ICP needs a target cloud with normals "
             "(edge clouds carry them; see extract_edge_features)"
         )
-    colored = p2l and config.color_weight > 0.0 and tgt.cgrad is not None
-    if colored:
-        i_src = intensity(src.rgb).to(dtype)  # pose-invariant
-        i_tgt = intensity(tgt.rgb).to(dtype)
+    i_src, i_tgt = _intensities(src, tgt, config)
     max_d2 = config.max_correspondence_distance**2
     # prev_mse seed: PCL starts at +max; 1e18 keeps 1/prev normal (see
     # the JAX package) while dwarfing any real MSE
@@ -176,23 +205,10 @@ def icp_align(
         tgt_m = tgt.xyz.index_select(0, idx.long())
         if p2l:
             tgt_n = tgt.normal.index_select(0, idx.long())
-            w_fit = w
-            if config.huber_delta is not None:
-                r = ((src_t - tgt_m) * tgt_n).sum(-1)
-                w_fit = w * torch.clamp(
-                    config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0
-                )
+            w_fit = _huber(w, config.huber_delta, lambda: ((src_t - tgt_m) * tgt_n).sum(-1))
             color_kw = {}
-            if colored:
-                g_m = tgt.cgrad.index_select(0, idx.long())
-                di = i_tgt.index_select(0, idx.long()) - i_src
-                w_c = w * config.color_weight
-                if config.color_huber_delta is not None:
-                    r_c = ((src_t - tgt_m) * g_m).sum(-1) + di
-                    w_c = w_c * torch.clamp(
-                        config.color_huber_delta / torch.clamp(r_c.abs(), min=1e-12),
-                        max=1.0,
-                    )
+            if i_src is not None:
+                g_m, di, w_c = _color_rows(src_t, tgt_m, idx, w, tgt, i_src, i_tgt, config)
                 color_kw = dict(cgrad=g_m, color_resid=di, color_weights=w_c)
             t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit,
                               point_mix=config.point_plane_mix, group=group,

@@ -35,7 +35,7 @@ import torch
 
 from rspc_tpu_torch.cloud import Cloud
 from rspc_tpu_torch.config import NDTConfig
-from rspc_tpu_torch.ops.collectives import psum
+from rspc_tpu_torch.ops.collectives import psum, shard_cloud
 from rspc_tpu_torch.ops.eig3 import eigh3
 from rspc_tpu_torch.ops.transform import apply_transform, rotation_matrix
 from rspc_tpu_torch.ops.umeyama import _homogeneous
@@ -442,9 +442,8 @@ def ndt_align(
     """Align ``src`` onto the NDT grid (PCL ``ndt.align(output, guess)``);
     stops when the step falls below ``transformation_epsilon`` or at the
     iteration cap (both report converged, as PCL does). With ``group``,
-    ``src`` is this rank's shard and the ``max_source_points`` prefix is
-    not taken here: the caller slices the whole cloud before sharding it
-    (``chainscan.py::_chain_scan``)."""
+    every rank passes the whole ``src`` and solves on its shard of the
+    ``max_source_points`` prefix."""
     if config.pcl_exact_line_search:
         raise NotImplementedError(
             "the PCL-exact line search is not ported yet (ROADMAP.md Queue A)"
@@ -453,10 +452,12 @@ def ndt_align(
     guess = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
              else init_guess.to(dtype))
     cap = config.max_source_points
-    if 0 < cap < src.capacity and group is None:
+    if 0 < cap < src.capacity:
         # prefix slice: voxel-downsampled sources arrive in hash-shuffled
         # voxel order, so the first ``cap`` rows are a uniform subset
         src = src.map(lambda x: x[:cap])
+    if group is not None:
+        src = shard_cloud(src, group)
     objective, lookup, _, fvg, fvgh = _make_objective(src, grid, config, group)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     p = _matrix_to_pose(guess)

@@ -17,7 +17,6 @@ import dataclasses
 import torch
 
 from rspc_tpu_torch.cloud import Cloud
-from rspc_tpu_torch.ops.collectives import shard_rows
 from rspc_tpu_torch.ops.transform import (
     apply_transform,
     apply_transform_cloud,
@@ -98,27 +97,12 @@ def _ndt_pair_step(target: Cloud, edge: Cloud, guess, ndt_cfg, icp_cfg,
 def _fine_step(target: Cloud, src_down: Cloud, coarse, icp_cfg, rescue_thresh,
                rescue_cap, rescue_iters, group=None):
     """Fine ICP from the coarse pose, then the gated rescue: (fine, the
-    source moved by fine o coarse). With ``group`` the fine ICP solves on
-    this rank's shard of the strided source (``_shard_points``); the
-    rescue stays replicated, as in the JAX package."""
+    source moved by fine o coarse). With ``group`` the fine ICP is
+    sharded over it; the rescue stays replicated, as in the JAX package."""
     aligned = apply_transform_cloud(coarse.transform, src_down)
-    if group is None:
-        fine = icp_align(aligned, target, icp_cfg)
-    else:
-        fine = icp_align(
-            _shard_points(_stride_cloud(aligned, icp_cfg.max_source_points), group),
-            target, icp_cfg, group=group)
+    fine = icp_align(aligned, target, icp_cfg, group=group)
     return _maybe_rescue(fine, apply_transform_cloud(fine.transform, aligned), target,
                          icp_cfg, rescue_thresh, rescue_cap, rescue_iters)
-
-
-def _shard_points(c: Cloud, group) -> Cloud:
-    """This rank's contiguous chunk of a replicated cloud's rows, padded
-    with invalid rows (``ops/collectives.py::shard_rows``;
-    ``rspc_tpu/registration/chainscan.py::_shard_points``): each pair
-    solve then sweeps only its chunk and all-reduces the additive
-    moments, while every merge and carry stays replicated."""
-    return c.map(lambda x: shard_rows(x, group))
 
 
 def _imu_guesses(thetas: torch.Tensor, use_ndt: bool) -> torch.Tensor:

@@ -1,18 +1,19 @@
 """The port's scale-out layer (``rspc_tpu_torch/parallel/``) against the
 JAX package's (``rspc_tpu/parallel/``), on the CPU over gloo.
 
-One module fixture starts 4 gloo ranks once, each a process running
-``torch_parallel_worker.py`` (``file://`` init in a temporary directory;
-the worker imports neither jax nor ``rspc_tpu``). They
-build ``make_mesh(4)`` (``data`` x ``points`` = 2 x 2),
-``make_mesh(4, axes=("points",))`` and a 4 x 1 mesh (``points`` groups
-of one rank), run every path on them and the single-rank references,
-and pickle their results. The JAX package's results on the same inputs
-(sharded on its 8 virtual CPU devices, and single-device) are read from
-``goldens/parallel_jax.npz``, recorded by ``torch_parallel_goldens.py``:
-its sharded programs take about 100 s to compile on the CPU.
-``test_goldens_are_the_jax_packages`` recomputes the cheap part of that
-file with the JAX package live.
+One module fixture renders the inputs with the JAX package (the 80x60
+frames, the NDT cases' grids; ``torch_parallel_jax.py``), then starts 4
+gloo ranks once, each a process running ``torch_parallel_worker.py
+... port`` (``file://`` init in a temporary directory; the worker
+imports neither jax nor ``rspc_tpu``). They build ``make_mesh(4)``
+(``data`` x ``points`` = 2 x 2), ``make_mesh(4, axes=("points",))`` and
+a 4 x 1 mesh (``points`` groups of one rank), run every path on them and
+the single-rank references, and pickle their results. While they run,
+the JAX package computes its side live on the same inputs: the sharded
+NN on its 8 virtual CPU devices and single-device, sharded and single
+NDT, single-device ICP. Its sharded ICP and chains take about 110 s to
+compile on the CPU, so tests/test_torch_parallel_jax.py holds the port
+against them, on its own xdist worker; this file stays under a minute.
 
 Tolerances:
   * every rank holds the same bits of every collective result;
@@ -21,18 +22,12 @@ Tolerances:
     port's single sweep does (tests/test_torch_nn.py): the same indices
     for valid sources, the same inf pattern, distances rtol 1e-5;
   * against the JAX package, the port's single-rank tolerance of the same
-    function: ICP and NDT transforms 1e-4 (tests/test_torch_voxel_icp_ndt.py),
-    NDT scores rtol 1e-4, chain totals 5e-4 with the same convergence and
-    anchor flags and global points within 5e-3 (tests/test_torch_slice.py).
-    The chains are compared on the JAX package's phase-1 edge clouds,
-    swapped into the port's phase 1 as tests/test_torch_robust_paths.py
-    does: the two Canny implementations break exact NMS ties differently
-    (about ten edge pixels of these 80x60 frames), which moves the coarse
-    ICP batch's totals by 1.5e-3 on each package's own phase 1;
+    function (``W.JAX_TOL``): ICP and NDT transforms 1e-4
+    (tests/test_torch_voxel_icp_ndt.py), NDT scores rtol 1e-4;
   * against the port's own single rank, 10x the JAX package's
-    sharded-against-single figure in MULTICHIP_r05.json: p2p ICP 2.64e-6,
-    p2l and colored ICP 1.82e-6, NDT 1.92e-6 (on the dry run's own NDT
-    case), the points-sharded chain 5.36e-6. On tests/test_parallel.py's
+    sharded-against-single figure in MULTICHIP_r05.json (``W.SINGLE_TOL``):
+    p2p ICP 2.64e-6, p2l and colored ICP 1.82e-6, NDT 1.92e-6 (on the dry
+    run's own NDT case), the points-sharded chain 5.36e-6. On tests/test_parallel.py's
     NDT case (points in a cube) the port's single rank stops after 7
     Newton steps where the JAX package takes 9, 5.4e-4 away; sharded, the
     port takes the JAX package's path. That case is held to the JAX
@@ -44,35 +39,21 @@ Tolerances:
     per sequence through the scheme's own fused path.
 """
 
-import os
-import pickle
-import subprocess
-import sys
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_parallel_jax as J
 import torch_parallel_worker as W
-from rspc_tpu.ops.nn import nearest_neighbors as j_nn
 from rspc_tpu.parallel import make_mesh as j_make_mesh
-from rspc_tpu.parallel import sharded_nearest_neighbors as j_sharded_nn
-from rspc_tpu.registration.icp import icp_align as j_icp
-from rspc_tpu.config import ICPConfig as JICPConfig
-from rspc_tpu.cloud import Cloud as JCloud
 from rspc_tpu_torch.cloud import OrganizedCloud
 from rspc_tpu_torch.interop import config_from_dict
 from rspc_tpu_torch.parallel import batched_registration
 from rspc_tpu_torch.parallel.mesh import mesh_shape
 
-GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
-                       "parallel_jax.npz")
+from torch_parallel_worker import JAX_TOL, SINGLE_TOL, assert_same, max_err
+
 RANK_TIMEOUT_S = 240
-JAX_TOL = {"icp": 1e-4, "ndt": 1e-4, "chain": 5e-4, "global": 5e-3}
-SINGLE_TOL = {"p2p": 2.64e-6, "p2l": 1.82e-6, "colored": 1.82e-6, "ndt": 1.92e-6,
-              "chain": 5.36e-6}
 COLLECTIVE = (["mesh shapes"]
               + [f"nn {c} {m}" for c in ("all_valid", "masked") for m in ("points4", "2x2")]
               + [f"icp {c} {m}" for c in W.ICP_CFG for m in ("points4", "2x2")]
@@ -80,69 +61,41 @@ COLLECTIVE = (["mesh shapes"]
               + [f"ndt {c} {m}" for c in W.NDT_CFG for m in ("points4", "2x2")]
               + [f"points chain {m}" for m in ("points4", "2x2", "4x1")]
               + [f"batched 2x2 global={g}" for g in (True, False)]
-              + ["points chain points4 jax edges", "batched 2x2 jax edges"]
               + ["batched errors"])
 
 
 @pytest.fixture(scope="module")
-def jax_side():
-    with np.load(GOLDENS) as z:
-        return {k: z[k] for k in z.files}
+def inputs():
+    """The JAX package's frames and NDT grids, made live."""
+    return J.inputs(edges=False)
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Each rank's ``{job: result}`` from one run of 4 gloo ranks."""
-    tmp = tmp_path_factory.mktemp("gloo")
-    procs = [subprocess.Popen(
-        [sys.executable, W.__file__, str(r), str(tmp / "init"), GOLDENS, str(tmp)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(W.WORLD)]
+def both(tmp_path_factory, inputs):
+    """(each rank's ``{job: result}`` from one run of 4 gloo ranks, the
+    JAX package's results), the JAX side computed while the ranks run."""
+    started = W.start(tmp_path_factory.mktemp("gloo"), inputs, "port", RANK_TIMEOUT_S)
     try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        jax_side = {**J.nn_results(), **J.ndt_results(), **J.icp_single_results()}
     finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    failed = [(r, p.returncode, logs[r]) for r, p in enumerate(procs) if p.returncode]
-    assert not failed, failed
-    out = []
-    for r in range(W.WORLD):
-        with open(tmp / f"rank{r}.pkl", "rb") as f:  # written by our own ranks
-            out.append(pickle.load(f))
-    return out
+        ranks = W.collect(started)
+    return ranks, jax_side
 
 
-def _flat(x, prefix=""):
-    """Nested results -> {path: numpy array}."""
-    if isinstance(x, dict):
-        out = {}
-        for k, v in x.items():
-            out.update(_flat(v, f"{prefix}/{k}"))
-        return out
-    if isinstance(x, list) and not all(isinstance(v, np.ndarray) for v in x):
-        out = {}
-        for i, v in enumerate(x):
-            out.update(_flat(v, f"{prefix}/{i}"))
-        return out
-    return {prefix: np.asarray(x)}
+@pytest.fixture(scope="module")
+def ranks(both):
+    return both[0]
 
 
-def _equal(a, b):
-    fa, fb = _flat(a), _flat(b)
-    assert fa.keys() == fb.keys()
-    for k in fa:
-        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
-
-
-def _err(a, b):
-    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+@pytest.fixture(scope="module")
+def jax_side(both):
+    return both[1]
 
 
 @pytest.mark.parametrize("job", COLLECTIVE)
 def test_every_rank_holds_the_same_result(ranks, job):
     for r in range(1, W.WORLD):
-        _equal(ranks[r][job], ranks[0][job])
+        assert_same(ranks[r][job], ranks[0][job])
 
 
 def test_make_mesh_shapes(ranks):
@@ -183,27 +136,29 @@ def test_sharded_nn_is_exact(ranks, jax_side, case, mesh):
 @pytest.mark.parametrize("case", list(W.ICP_CFG))
 @pytest.mark.parametrize("mesh", ["points4", "2x2"])
 def test_sharded_icp(ranks, jax_side, case, mesh):
+    """Against the port's single rank and the JAX package's single device
+    (its sharded solve: tests/test_torch_parallel_jax.py)."""
     got = ranks[0][f"icp {case} {mesh}"]
-    for which in ("sharded", "single"):
-        assert _err(got["transform"], jax_side[f"icp/{case}/{which}/transform"]) <= JAX_TOL["icp"]
-    assert bool(got["converged"]) == bool(jax_side[f"icp/{case}/sharded/converged"])
+    assert max_err(got["transform"], jax_side[f"icp/{case}/single/transform"]) <= JAX_TOL["icp"]
+    assert bool(got["converged"]) == bool(jax_side[f"icp/{case}/single/converged"])
     single = ranks[2][f"icp {case} none"]
-    assert _err(got["transform"], single["transform"]) <= SINGLE_TOL[case]
+    assert max_err(got["transform"], single["transform"]) <= SINGLE_TOL[case]
     assert bool(got["converged"]) and bool(single["converged"])
     # fitness at a near-exact fit is f32 noise (~1e-14): an absolute bound
-    np.testing.assert_allclose(got["fitness"], jax_side[f"icp/{case}/sharded/fitness"],
+    np.testing.assert_allclose(got["fitness"], jax_side[f"icp/{case}/single/fitness"],
                                rtol=1e-3, atol=1e-10)
 
 
 @pytest.mark.parametrize("variant", ["p2p", "p2l"])
-def test_batched_sharded_icp(ranks, jax_side, variant):
+def test_batched_sharded_icp(ranks, variant):
+    """Each pair against the port's single rank (the JAX package's batch:
+    tests/test_torch_parallel_jax.py)."""
     got = ranks[0][f"batched icp {variant} 2x2"]
     assert got["transform"].shape == (2, 4, 4)
-    assert _err(got["transform"], jax_side[f"batched_icp/{variant}/transform"]) <= JAX_TOL["icp"]
-    np.testing.assert_array_equal(got["converged"], jax_side[f"batched_icp/{variant}/converged"])
+    assert got["converged"].all()
     for i in range(2):
         single = ranks[2][f"batched icp {variant} single {i}"]
-        assert _err(got["transform"][i], single["transform"]) <= SINGLE_TOL[variant]
+        assert max_err(got["transform"][i], single["transform"]) <= SINGLE_TOL[variant]
 
 
 @pytest.mark.parametrize("case", list(W.NDT_CFG))
@@ -211,25 +166,25 @@ def test_batched_sharded_icp(ranks, jax_side, variant):
 def test_sharded_ndt(ranks, jax_side, case, mesh):
     got = ranks[0][f"ndt {case} {mesh}"]
     for which in ("sharded", "single"):
-        assert _err(got["transform"], jax_side[f"ndt/{case}/{which}/transform"]) <= JAX_TOL["ndt"]
+        assert max_err(got["transform"], jax_side[f"ndt/{case}/{which}/transform"]) <= JAX_TOL["ndt"]
     np.testing.assert_allclose(got["score"], jax_side[f"ndt/{case}/sharded/score"], rtol=1e-4)
     single = ranks[3][f"ndt {case} none"]
     if case == "cube":  # see the module docstring
-        assert _err(got["transform"], single["transform"]) <= 1e-3
+        assert max_err(got["transform"], single["transform"]) <= 1e-3
         np.testing.assert_allclose(got["score"], single["score"], rtol=1e-3)
     else:
-        assert _err(got["transform"], single["transform"]) <= SINGLE_TOL["ndt"]
+        assert max_err(got["transform"], single["transform"]) <= SINGLE_TOL["ndt"]
 
 
 @pytest.mark.parametrize("job,rank", [
     *((f"icp {c}", 2) for c in W.ICP_CFG), *((f"ndt {c}", 3) for c in W.NDT_CFG),
     ("fits", 3), ("fused robust", 1)])
 def test_group_of_one_rank_is_group_none_bit_for_bit(ranks, job, rank):
-    _equal(ranks[rank][f"{job} one"], ranks[rank][f"{job} none"])
+    assert_same(ranks[rank][f"{job} one"], ranks[rank][f"{job} none"])
 
 
 @pytest.mark.parametrize("mesh", ["points4", "2x2", "4x1"])
-def test_points_sharded_chain(ranks, jax_side, mesh):
+def test_points_sharded_chain(ranks, mesh):
     """The robust chain (warm start, guard, rescue, map anchor) with every
     pair solve sharded; the 4 x 1 mesh's group of one rank gives the
     single-rank bits."""
@@ -237,66 +192,27 @@ def test_points_sharded_chain(ranks, jax_side, mesh):
     single = ranks[1]["fused robust none"]
     if mesh == "4x1":
         np.testing.assert_array_equal(got["totals"], single["totals"])
-    assert _err(got["totals"], single["totals"]) <= SINGLE_TOL["chain"]
+    assert max_err(got["totals"], single["totals"]) <= SINGLE_TOL["chain"]
     np.testing.assert_array_equal(got["converged"], single["converged"])
     np.testing.assert_array_equal(got["anchor_accepted"], single["anchor_accepted"])
     assert "global" not in got
 
 
-def test_points_sharded_chain_matches_jax(ranks, jax_side):
-    """On the JAX package's edge clouds, against its points-sharded chain
-    on 8 devices and its single-device program."""
-    got = ranks[0]["points chain points4 jax edges"]
-    for which in ("sharded", "single"):
-        assert _err(got["totals"], jax_side[f"points_chain/{which}/totals"]) <= JAX_TOL["chain"]
-        np.testing.assert_array_equal(got["converged"],
-                                      jax_side[f"points_chain/{which}/converged"])
-    np.testing.assert_array_equal(got["anchor_accepted"],
-                                  jax_side["points_chain/sharded/anchor_accepted"])
-
-
-def test_batched_registration_matches_jax(ranks, jax_side):
-    """The unsharded batch on the JAX package's edge clouds, NDT (with the
-    global clouds) and ICP coarse stages."""
-    got = ranks[0]["batched none jax edges ndt"]
-    assert got["totals"].shape == (2, W.N_FRAMES - 1, 4, 4)
-    assert _err(got["totals"], jax_side["batched/ndt/totals"]) <= JAX_TOL["chain"]
-    for k in ("converged", "anchor_accepted"):
-        np.testing.assert_array_equal(got[k], jax_side[f"batched/ndt/{k}"])
-    np.testing.assert_allclose(got["fitness"], jax_side["batched/ndt/fitness"], rtol=1e-3)
-    v = jax_side["batched/ndt/global_valid"]
-    np.testing.assert_array_equal(got["global"]["valid"], v)
-    assert _err(got["global"]["xyz"][v], jax_side["batched/ndt/global_xyz"][v]) <= JAX_TOL["global"]
-    icp = ranks[0]["batched none jax edges icp"]
-    assert _err(icp["totals"], jax_side["batched/icp/totals"]) <= JAX_TOL["chain"]
-    np.testing.assert_array_equal(icp["converged"], jax_side["batched/icp/converged"])
-    assert "global" not in icp
-
-
 @pytest.mark.parametrize("include_global", [True, False])
-def test_data_sharded_batch_equals_unsharded(ranks, jax_side, include_global):
+def test_data_sharded_batch_equals_unsharded(ranks, include_global):
     got = ranks[0][f"batched 2x2 global={include_global}"]
-    _equal(got, ranks[0][f"batched none global={include_global}"])
+    assert_same(got, ranks[0][f"batched none global={include_global}"])
     assert ("global" in got) == include_global
 
 
-def test_data_sharded_batch_matches_jax(ranks, jax_side):
-    """On the JAX package's edge clouds, against its data-sharded batch on
-    a 2 x 4 mesh of its 8 devices."""
-    got = ranks[0]["batched 2x2 jax edges"]
-    assert _err(got["totals"], jax_side["batched/data_mesh/totals"]) <= JAX_TOL["chain"]
-    np.testing.assert_array_equal(got["converged"], jax_side["batched/data_mesh/converged"])
-
-
-def test_unsharded_batch_is_the_schemes_fused_path(ranks):
+def test_unsharded_batch_is_the_schemes_fused_path(ranks, inputs):
     """Sequence 0 of the batch through ``NDTEdgeBasedRegistration`` (its
     fused path calls the same body): the same totals bit for bit."""
     from rspc_tpu_torch.registration.schemes import NDTEdgeBasedRegistration
 
-    with np.load(GOLDENS) as z:
-        frames = [OrganizedCloud(*(torch.from_numpy(z[f"frames_{k}"][0, i])
-                                   for k in ("xyz", "rgb", "valid")))
-                  for i in range(W.N_FRAMES)]
+    frames = [OrganizedCloud(*(torch.from_numpy(inputs[f"frames_{k}"][0, i])
+                               for k in ("xyz", "rgb", "valid")))
+              for i in range(W.N_FRAMES)]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the ranks' setting: the same reduction order
     try:
@@ -309,8 +225,8 @@ def test_unsharded_batch_is_the_schemes_fused_path(ranks):
                                   ranks[0]["batched none global=True"]["totals"][0])
 
 
-def test_batched_shape_errors(ranks, jax_side):
-    stacked = OrganizedCloud(*(torch.from_numpy(jax_side[f"frames_{k}"])
+def test_batched_shape_errors(ranks, inputs):
+    stacked = OrganizedCloud(*(torch.from_numpy(inputs[f"frames_{k}"])
                                for k in ("xyz", "rgb", "valid")))
     guesses = torch.from_numpy(np.stack([W.static_guesses(y) for y in W.YAWS]))
     cfg = config_from_dict(W.CHAIN_CFG)
@@ -322,20 +238,3 @@ def test_batched_shape_errors(ranks, jax_side):
     assert "not divisible by data axis 4" in divisible
     assert "mesh needs a 'data' axis" in data_axis
     assert "mesh needs a 'rows' axis" in axis
-
-
-def test_goldens_are_the_jax_packages(jax_side):
-    """The cheap part of goldens/parallel_jax.npz recomputed live: the
-    JAX package's sharded NN on 8 devices and its single-device ICP."""
-    assert len(jax.devices()) == 8
-    for case in ("all_valid", "masked"):
-        args = [jnp.asarray(a) for a in W.nn_case(case)]
-        d2, idx = j_sharded_nn(*args, j_make_mesh(8, axes=("points",)), chunk=W.NN_CHUNK)
-        np.testing.assert_array_equal(np.asarray(idx), jax_side[f"nn/{case}/sharded/idx"])
-        d2, idx = j_nn(*args, chunk=2 * W.NN_CHUNK)
-        np.testing.assert_array_equal(np.asarray(idx), jax_side[f"nn/{case}/single/idx"])
-    src, tgt = (JCloud(**{k: jnp.asarray(v) for k, v in c.items()})
-                for c in W.icp_case("p2p"))
-    res = j_icp(src, tgt, JICPConfig(**W.ICP_CFG["p2p"]))
-    np.testing.assert_allclose(np.asarray(res.transform),
-                               jax_side["icp/p2p/single/transform"], atol=1e-6)

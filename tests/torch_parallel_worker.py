@@ -1,25 +1,32 @@
-"""Rank worker of tests/test_torch_parallel.py: the cases' inputs and
-configurations, and what each gloo rank runs.
+"""Rank worker of tests/test_torch_parallel.py and
+tests/test_torch_parallel_jax.py: the cases' inputs and configurations,
+and what each gloo rank runs.
 
-    python tests/torch_parallel_worker.py RANK INIT_FILE INPUTS.npz OUT_DIR
+    python tests/torch_parallel_worker.py RANK INIT_FILE INPUTS.npz OUT_DIR SUITE
 
-The test starts one such process per rank. A rank imports this module
-and the port, never jax or ``rspc_tpu`` (``run`` checks), so the module
-holds everything both sides share in numpy and plain-dict form:
-tests/torch_parallel_goldens.py builds the JAX package's side from the
-same case functions and configurations.
+A test starts one such process per rank (``start``) and reads their
+results back (``collect``). A rank imports this module and the port,
+never jax or ``rspc_tpu`` (``run`` checks), so the module holds
+everything both sides share in numpy and plain-dict form:
+tests/torch_parallel_jax.py runs the JAX package on the same case
+functions and configurations, and makes the inputs in INPUTS.npz.
 
-Every rank runs the collective jobs in one order over three meshes on
-gloo: ``make_mesh(4)`` (``data`` x ``points`` = 2 x 2),
+Every rank runs SUITE's collective jobs in one order over three meshes
+on gloo: ``make_mesh(4)`` (``data`` x ``points`` = 2 x 2),
 ``make_mesh(4, axes=("points",))`` and a 4 x 1 mesh whose ``points``
 groups hold one rank each (the world-size-1 group); then the single-rank
-jobs given to it. Each rank pickles its results to ``out_dir``.
+jobs given to it. SUITE ``port`` holds the jobs that the port's own
+single rank and the cheap JAX results check; ``jax`` the sharded ICP
+and the chains on the JAX package's edge clouds, which the JAX
+package's sharded programs check. Each rank pickles its results to
+``out_dir``.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import subprocess
 import sys
 from datetime import timedelta
 
@@ -189,12 +196,50 @@ def static_guesses(yaw):
     return np.stack(out)
 
 
+
+# ------------------------------------------------------------ comparisons
+
+# against the JAX package: the port's single-rank tolerance of the same
+# function (tests/test_torch_voxel_icp_ndt.py, tests/test_torch_slice.py);
+# against the port's own single rank: 10x the JAX package's
+# sharded-against-single figure in MULTICHIP_r05.json
+JAX_TOL = {"icp": 1e-4, "ndt": 1e-4, "chain": 5e-4, "global": 5e-3}
+SINGLE_TOL = {"p2p": 2.64e-6, "p2l": 1.82e-6, "colored": 1.82e-6, "ndt": 1.92e-6,
+              "chain": 5.36e-6}
+
+
+def _flat(x, prefix=""):
+    """Nested results -> {path: numpy array}."""
+    if isinstance(x, dict):
+        out = {}
+        for k, v in x.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(x, list) and not all(isinstance(v, np.ndarray) for v in x):
+        out = {}
+        for i, v in enumerate(x):
+            out.update(_flat(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: np.asarray(x)}
+
+
+def assert_same(a, b):
+    fa, fb = _flat(a), _flat(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+def max_err(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
 # ------------------------------------------------------------------ ranks
 
 
-def _jobs(inputs):
-    """(name, fn) of the collective jobs, run by every rank in this order
-    (a job's collectives must line up across ranks)."""
+def _jobs(inputs, suite):
+    """(name, fn) of SUITE's collective jobs, run by every rank in this
+    order (a job's collectives must line up across ranks)."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -217,14 +262,9 @@ def _jobs(inputs):
     }
     t = lambda a: torch.from_numpy(np.array(a))
     chain = _chain_inputs(inputs)
-    jobs = [("mesh shapes", lambda: {
-        k: dict(zip(m.mesh_dim_names, m.mesh.shape)) for k, m in meshes.items()
-        if k != "4x1"})]
-    for case in ("all_valid", "masked"):
-        for mesh in ("points4", "2x2"):
-            jobs.append((f"nn {case} {mesh}", lambda case=case, mesh=mesh: _np(
-                sharded_nearest_neighbors(*map(t, nn_case(case)), meshes[mesh],
-                                          chunk=NN_CHUNK))))
+    robust = config_from_dict(ROBUST_CFG)
+    plain = config_from_dict(CHAIN_CFG)
+    jobs = []
     for case in ICP_CFG:
         cfg = config_from_dict(ICP_CFG[case], ICPConfig)
         src, tgt = (cloud_from_numpy(c) for c in icp_case(case))
@@ -237,14 +277,29 @@ def _jobs(inputs):
         jobs.append((f"batched icp {variant} 2x2", lambda src=src, tgt=tgt, g=guesses, cfg=cfg:
                      _np(batched_sharded_icp_align(cloud_from_numpy(src), cloud_from_numpy(tgt),
                                                    t(g), meshes["2x2"], cfg))))
+    if suite == "jax":
+        with_jax_edges = lambda fn: lambda: _with_jax_edges(inputs, chain, fn)
+        jobs.append(("points chain points4 jax edges", with_jax_edges(lambda: _np(
+            points_sharded_registration(chain["seq0"], chain["guesses"][0], robust,
+                                        meshes["points4"], include_global=False)))))
+        jobs.append(("batched 2x2 jax edges", with_jax_edges(lambda: _np(batched_registration(
+            chain["stacked"], chain["guesses"], plain, mesh=meshes["2x2"],
+            include_global=False)))))
+        return jobs
+    jobs.append(("mesh shapes", lambda: {
+        k: dict(zip(m.mesh_dim_names, m.mesh.shape)) for k, m in meshes.items()
+        if k != "4x1"}))
+    for case in ("all_valid", "masked"):
+        for mesh in ("points4", "2x2"):
+            jobs.append((f"nn {case} {mesh}", lambda case=case, mesh=mesh: _np(
+                sharded_nearest_neighbors(*map(t, nn_case(case)), meshes[mesh],
+                                          chunk=NN_CHUNK))))
     for case in NDT_CFG:
         cfg, grid = _ndt_grid(case, inputs)
         src = cloud_from_numpy(_cloud(ndt_case(case)[0]))
         for mesh in ("points4", "2x2"):
             jobs.append((f"ndt {case} {mesh}", lambda src=src, grid=grid, cfg=cfg, mesh=mesh:
                          _np(sharded_ndt_align(src, grid, meshes[mesh], cfg))))
-    robust = config_from_dict(ROBUST_CFG)
-    plain = config_from_dict(CHAIN_CFG)
     for mesh in ("points4", "2x2", "4x1"):
         jobs.append((f"points chain {mesh}", lambda mesh=mesh: _np(points_sharded_registration(
             chain["seq0"], chain["guesses"][0], robust, meshes[mesh], include_global=False))))
@@ -252,12 +307,6 @@ def _jobs(inputs):
         jobs.append((f"batched 2x2 global={include_global}", lambda g=include_global: _np(
             batched_registration(chain["stacked"], chain["guesses"], plain,
                                  mesh=meshes["2x2"], include_global=g))))
-    with_jax_edges = lambda fn: lambda: _with_jax_edges(inputs, chain, fn)
-    jobs.append(("points chain points4 jax edges", with_jax_edges(lambda: _np(
-        points_sharded_registration(chain["seq0"], chain["guesses"][0], robust,
-                                    meshes["points4"], include_global=False)))))
-    jobs.append(("batched 2x2 jax edges", with_jax_edges(lambda: _np(batched_registration(
-        chain["stacked"], chain["guesses"], plain, mesh=meshes["2x2"], include_global=False)))))
     jobs.append(("batched errors", lambda: _errors(
         lambda: batched_registration(chain["stacked"], chain["guesses"], plain,
                                      mesh=meshes["4x1"]),
@@ -268,11 +317,11 @@ def _jobs(inputs):
     return jobs
 
 
-def _solo_jobs(rank, inputs, one):
-    """(name, fn) of the single-rank references, spread over the ranks:
-    the group=None results that the sharded ones are held against, and
-    the same solvers on ``one``, a group of this rank alone, which must
-    give the same bits."""
+def _solo_jobs(rank, inputs, one, suite):
+    """(name, fn) of SUITE's single-rank references, spread over the
+    ranks: the group=None results that the sharded ones are held against,
+    and the same solvers on ``one``, a group of this rank alone, which
+    must give the same bits."""
     import torch
 
     from rspc_tpu_torch.config import ICPConfig
@@ -287,17 +336,20 @@ def _solo_jobs(rank, inputs, one):
     t = lambda a: torch.from_numpy(np.array(a))
     chain = _chain_inputs(inputs)
     jobs = []
+    plain = config_from_dict(CHAIN_CFG)
+    if suite == "jax":
+        if rank == 0:
+            for use_ndt, name in ((True, "ndt"), (False, "icp")):
+                jobs.append((f"batched none jax edges {name}", lambda use_ndt=use_ndt:
+                             _with_jax_edges(inputs, chain, lambda: _np(batched_registration(
+                                 chain["stacked"], chain["guesses"], plain, use_ndt=use_ndt,
+                                 include_global=use_ndt)))))
+        return jobs
     if rank == 0:
-        plain = config_from_dict(CHAIN_CFG)
         for include_global in (True, False):
             jobs.append((f"batched none global={include_global}", lambda g=include_global: _np(
                 batched_registration(chain["stacked"], chain["guesses"], plain,
                                      include_global=g))))
-        for use_ndt, name in ((True, "ndt"), (False, "icp")):
-            jobs.append((f"batched none jax edges {name}", lambda use_ndt=use_ndt: _with_jax_edges(
-                inputs, chain, lambda: _np(batched_registration(
-                    chain["stacked"], chain["guesses"], plain, use_ndt=use_ndt,
-                    include_global=use_ndt)))))
     if rank == 1:
         robust = config_from_dict(ROBUST_CFG)
         frames = [chain["seq0"].map(lambda x, i=i: x[i]) for i in range(N_FRAMES)]
@@ -433,8 +485,38 @@ def _errors(*calls):
     return out
 
 
-def run(rank, init_file, inputs_path, out_dir):
-    """One gloo rank: run the jobs and pickle ``{name: result}`` to
+def start(tmp, inputs, suite, timeout_s):
+    """Write ``inputs`` to ``tmp`` and start the ``WORLD`` ranks of
+    SUITE; ``collect`` reads their results."""
+    path = os.path.join(tmp, "inputs.npz")
+    np.savez(path, **inputs)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), os.path.join(tmp, "init"), path,
+         str(tmp), suite], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(WORLD)]
+    return procs, tmp, timeout_s
+
+
+def collect(started):
+    """Each rank's ``{job: result}``, once every rank has ended with 0."""
+    procs, tmp, timeout_s = started
+    try:
+        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    failed = [(r, p.returncode, logs[r]) for r, p in enumerate(procs) if p.returncode]
+    assert not failed, failed
+    out = []
+    for r in range(WORLD):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:  # written by our own ranks
+            out.append(pickle.load(f))
+    return out
+
+
+def run(rank, init_file, inputs_path, out_dir, suite):
+    """One gloo rank: run SUITE's jobs and pickle ``{name: result}`` to
     ``out_dir/rank{rank}.pkl``."""
     import torch
     import torch.distributed as dist
@@ -448,8 +530,9 @@ def run(rank, init_file, inputs_path, out_dir):
         # every rank builds every group (new_group is collective); rank r
         # keeps the one that holds only r
         singles = [dist.new_group([r]) for r in range(WORLD)]
-        results = {name: fn() for name, fn in _jobs(inputs)}
-        results.update({name: fn() for name, fn in _solo_jobs(rank, inputs, singles[rank])})
+        results = {name: fn() for name, fn in _jobs(inputs, suite)}
+        results.update({name: fn() for name, fn in _solo_jobs(rank, inputs, singles[rank],
+                                                                suite)})
         imported = sorted(m for m in ("jax", "rspc_tpu") if m in sys.modules)
         if imported:
             raise RuntimeError(f"a rank imported {imported}")
@@ -461,4 +544,4 @@ def run(rank, init_file, inputs_path, out_dir):
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    run(int(sys.argv[1]), *sys.argv[2:5])
+    run(int(sys.argv[1]), *sys.argv[2:6])

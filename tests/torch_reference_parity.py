@@ -40,6 +40,15 @@ in the port on ``--device`` alone and prints, per pair, the rescue gate
 max |T - T_gt|: run it on the card and on the CPU to find the first pair
 where the two part.
 
+With ``serving``, it runs the serving phase's sequences of
+``chip_smoke.py`` (``benchmarks/serving.py``: 10 frames, yaw -0.08 -
+0.01 i rad per frame, ``north_star_config()``, static accumulated-yaw
+guesses, no global cloud; i = 0..3 unless yaws are given), one at a
+time through each package's ``batched_registration`` at B = 1, the JAX
+package on the CPU and the port on ``--device``, on the JAX package's
+frames, and prints each package's converged count and max |T - T_gt|
+per pair, and max |T_jax - T_port|.
+
 Not a pytest module (the JAX package takes minutes per scheme at this
 size on the CPU). Run from the repository root:
 
@@ -49,6 +58,7 @@ size on the CPU). Run from the repository root:
         [--device=cuda] [--edges=port] [scene[:preset] ...]
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py phase1 [--size=WxH] [--device=cuda] [scene ...]
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py split [--size=WxH] [--device=cuda] scene
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py serving [--size=WxH] [--device=cuda] [yaw ...]
 """
 
 import dataclasses
@@ -365,6 +375,61 @@ def auto(name, width, height, device, jclouds, frames, guess, gt):
               flush=True)
 
 
+def serving(args) -> int:
+    """``serving [--size=WxH] [--device=cuda] [yaw ...]``."""
+    import jax.numpy as jnp
+    import torch
+
+    from rspc_tpu.cloud import OrganizedCloud as JOrganized
+    from rspc_tpu.parallel.chain import batched_registration as j_batched
+    from rspc_tpu.presets import north_star_config as j_north_star
+    from rspc_tpu_torch.parallel import batched_registration as t_batched
+    from rspc_tpu_torch.presets import north_star_config as t_north_star
+
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    width, height = (int(x) for x in opts.get("size", "640x480").split("x"))
+    device = opts.get("device", "cpu")
+    yaws = [float(a) for a in args if not a.startswith("--")] or [
+        YAW_STEP - 0.01 * i for i in range(4)]
+    for yaw in yaws:
+        seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=yaw,
+                                intr=Intrinsics.simple(width, height))
+        jclouds = seq.clouds()
+        guesses, acc = [], 0.0
+        for _ in range(N_FRAMES - 1):  # benchmarks/serving.py's accumulation
+            acc += yaw
+            m = np.eye(4, dtype=np.float32)
+            m[0, 0], m[0, 2], m[2, 0], m[2, 2] = np.cos(acc), np.sin(acc), -np.sin(acc), np.cos(acc)
+            guesses.append(m)
+        guesses = np.stack(guesses)[None]
+        fields = {k: np.stack([np.asarray(getattr(c, k)) for c in jclouds])[None]
+                  for k in ("xyz", "rgb", "valid")}
+        gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+        totals = {}
+        for side, run in (
+                ("jax", lambda: j_batched(JOrganized(**{k: jnp.asarray(v) for k, v in
+                                                        fields.items()}),
+                                          jnp.asarray(guesses), j_north_star(),
+                                          use_ndt=True, include_global=False)),
+                (f"port ({device})", lambda: t_batched(
+                    cloud_from_numpy(fields, organized=True, device=device),
+                    torch.from_numpy(guesses).to(device), t_north_star(), use_ndt=True,
+                    include_global=False))):
+            t0 = time.perf_counter()
+            out = run()
+            host = lambda x: np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+            totals[side] = host(out["totals"][0])
+            conv = int(host(out["converged"][0]).sum())
+            print(f"serving yaw {yaw:+.2f} {width}x{height} {side} "
+                  f"({time.perf_counter() - t0:.1f} s): converged {conv}/{N_FRAMES - 1}; "
+                  f"max |T - T_gt| {pair_max(totals[side], gt).max():.4e}; per pair "
+                  f"{_fmt(pair_max(totals[side], gt))}", flush=True)
+        a, b = totals.values()
+        print(f"serving yaw {yaw:+.2f}: max |T_jax - T_port| {np.abs(a - b).max():.4e}",
+              flush=True)
+    return 0
+
+
 def pair_max(a, b):
     return np.abs(np.asarray(a) - np.asarray(b)).reshape(N_FRAMES - 1, -1).max(1)
 
@@ -418,6 +483,8 @@ if __name__ == "__main__":
         sys.exit(robust(sys.argv[2:]))
     if sys.argv[1:2] == ["phase1"]:
         sys.exit(phase1(sys.argv[2:]))
+    if sys.argv[1:2] == ["serving"]:
+        sys.exit(serving(sys.argv[2:]))
     if sys.argv[1:2] == ["split"]:
         sys.exit(split(sys.argv[2:]))
     sys.exit(main(sys.argv[1:] or list(SCHEMES)))
