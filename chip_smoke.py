@@ -129,7 +129,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      the points-sharded north star 9/9 within 1e-3 of the truth and 1e-4
      of one rank, the data-sharded B = 2 batch equal to the unsharded one;
      both ranks must agree. Two ranks on one card measure nothing about
-     scale-out: their walls are printed as that.
+     scale-out: their walls are printed as that;
+ 16. ``ndt_modes``: the north star three ways, each from counts set to 0
+     after a warm-up, its wall and host syncs printed: NDT's frozen line
+     search (the default), ``pcl_exact_line_search=True`` (9/9 within
+     1e-3 of the truth, totals within 1e-3 of the frozen run's) and
+     ``sweep_cells=512`` (9/9, totals within 1e-4 of the gather path's);
+     then the first NDT pair at the PCL default neighbourhood (27 cells)
+     with ``sweep_cells=-1`` (auto, 512) against the gather path (1e-5),
+     and each line search's host syncs per Newton step on it;
+ 17. ``input_side`` on frame 0 (640x480): ``passthrough`` against its
+     numpy mask and ``statistical_outlier_removal(mean_k=50,
+     stddev_mult=1.5)`` on all 307,200 slots against a scipy ``cKDTree``
+     oracle (equal but for points within 1e-6 of the threshold);
+     ``estimate_normals_radius`` at r = 0.05 and 0.1 on the frame's 2 cm
+     voxel cloud against a float64 ``query_ball_point`` oracle (valid
+     masks equal, |cos| >= 0.999 where the neighbourhood's two smallest
+     eigenvalues differ by 1e-5 m^2 or more); ``deproject_depth`` with
+     Brown-Conrady coefficients (0.1, -0.05, 0.001, 0.001, 0.01) undone
+     to 2e-4 against the numpy forward model; ``render_trajectory`` of
+     the exact run's totals at 640x480 against the port's CPU render (at
+     most 0.1% of the pixels apart); ``python -m
+     rspc_tpu_torch.examples.pcd_visualization`` on a PCD of the voxel
+     cloud (rc 0, the PNG read back). Each wall is printed.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -216,6 +238,12 @@ SCALE_RANKS = 2
 SCALE_TOL = 1e-5
 SCALE_CHAIN_TOL = 1e-4
 SCALE_TIMEOUT_S = 300
+NDT_EXACT_DELTA = 1e-3  # exact against frozen line search totals (JAX: 1.1e-5, RESULTS.md)
+NDT_SWEEP_TOL = 1e-4  # compact-cell sweep against gather path totals
+NDT_PAIR_TOL = 1e-5  # one pair, auto sweep vs gather (the JAX test's 5e-6, f32 on the card)
+UNDISTORT_TOL = 2e-4  # tests/test_image_ops.py's round-trip bound
+NORMAL_GAP = 1e-5  # m^2: below this eigenvalue gap a radius normal is held by NORMAL_RQ_TOL
+NORMAL_RQ_TOL = 1e-7  # m^2: n^T C n above the smallest eigenvalue (the f32 moment error)
 
 
 def log(*a):
@@ -1694,6 +1722,295 @@ def scaleout_rank(rank: int, init_file: str, out_dir: str) -> None:
                      "launches": launches}, f)
 
 
+def ndt_pair(dev, scheme):
+    """The north star's first NDT pair: frame 1's edge cloud (voxel
+    downsampled as the chain does) against the grid of frame 0's, with
+    the static yaw guess."""
+    from rspc_tpu_torch.ops.transform import static_y_guess
+    from rspc_tpu_torch.ops.voxel import voxel_downsample
+
+    voxel = scheme.config.voxel
+    feats = scheme._out["features"]
+    edges = [voxel_downsample(feats.map(lambda x, i=i: x[i]), voxel.leaf_size,
+                              voxel.max_points) for i in (0, 1)]
+    return edges[0], edges[1], static_y_guess(YAW_STEP).to(dev)
+
+
+def phase_ndt_modes(dev, seq, clouds):
+    """The north star with NDT's two optional modes, each run from counts
+    set to 0: the PCL-exact line search (9/9 within ``MAX_ERR``, totals
+    within ``NDT_EXACT_DELTA`` of the frozen line search's run in this
+    call) and the compact-cell sweep at 512 cells (9/9, totals within
+    ``NDT_SWEEP_TOL`` of the gather path's); then one ``ndt_align`` pair
+    at the PCL default neighbourhood (27) with ``sweep_cells=-1`` (auto,
+    512) against the gather path (``NDT_PAIR_TOL``), and the host syncs
+    per Newton step of either line search on that pair."""
+    import dataclasses
+
+    import torch
+
+    from rspc_tpu_torch.presets import north_star_config
+    from rspc_tpu_torch.registration.ndt import build_ndt_grid, ndt_align
+    from rspc_tpu_torch.registration.schemes import NDTEdgeBasedRegistration
+
+    base = north_star_config()
+    modes = {"frozen": base.ndt,
+             "exact": dataclasses.replace(base.ndt, pcl_exact_line_search=True),
+             "sweep": dataclasses.replace(base.ndt, sweep_cells=512)}
+    runs, total = {}, None
+    for name, ndt in modes.items():
+        cfg = dataclasses.replace(base, ndt=ndt)
+
+        def run(cfg=cfg):
+            scheme = NDTEdgeBasedRegistration(rads=YAW_STEP, config=cfg)
+            scheme.registration(clouds)
+            torch.cuda.synchronize()
+            return scheme
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scheme, launches, plain = counted(run)
+        wall = time.perf_counter() - t0
+        _, syncs = count_syncs(run)
+        errs = pair_errs(seq, scheme.total_transforms)
+        conv = [bool(f.converged) for _, f in scheme.results]
+        iters = [int(c.iterations) for c, _ in scheme.results]
+        runs[name] = (scheme, errs)
+        log(f"ndt_modes {name}: wall {wall:.4f} s, {syncs} host syncs; "
+            f"converged {sum(conv)}/{len(conv)}; "
+            f"max |T_est - T_gt| {errs.max():.3e}; NDT Newton iterations per pair {iters}; "
+            f"launches {launches}; plain on CUDA {plain}")
+        if not all(conv) or not errs.max() < MAX_ERR:
+            raise AssertionError(f"ndt_modes {name}: converged {conv}, max err {errs.max():.3e}")
+        if launches["nn_sweep"] <= 0 or launches["hysteresis"] <= 0 or any(plain.values()):
+            raise AssertionError(f"ndt_modes {name} kernels: {launches}, plain {plain}")
+        if name != "frozen":
+            total = launches if total is None else {k: total[k] + launches[k] for k in total}
+    frozen = runs["frozen"][0].total_transforms
+    delta = {k: float((runs[k][0].total_transforms - frozen).abs().max())
+             for k in ("exact", "sweep")}
+    log(f"ndt_modes totals against the frozen gather run of this call: exact {delta['exact']:.3e} "
+        f"(gate {NDT_EXACT_DELTA}), sweep {delta['sweep']:.3e} (gate {NDT_SWEEP_TOL})")
+    if not (delta["exact"] <= NDT_EXACT_DELTA and delta["sweep"] <= NDT_SWEEP_TOL):
+        raise AssertionError(f"ndt_modes deltas {delta}")
+
+    tgt, src, guess = ndt_pair(dev, runs["frozen"][0])
+    pair_cfg = dataclasses.replace(base.ndt, neighborhood=27)
+    grid = build_ndt_grid(tgt, pair_cfg)
+    # host syncs per Newton step: the pair started 10 cm off its guess,
+    # solved to the end and to one step; the difference over the extra
+    # steps leaves out the set-up's host-to-device copies
+    off = guess.clone()
+    off[:3, 3] += torch.tensor([0.1, 0.0, 0.05], device=dev)
+    res = {}
+    for name, cfg in (("gather", pair_cfg),
+                      ("auto sweep", dataclasses.replace(pair_cfg, sweep_cells=-1)),
+                      ("exact", dataclasses.replace(pair_cfg, pcl_exact_line_search=True))):
+        ndt_align(src, grid, cfg, guess)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = ndt_align(src, grid, cfg, guess)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        full, s_full = count_syncs(lambda cfg=cfg: ndt_align(src, grid, cfg, off))
+        _, s_one = count_syncs(lambda cfg=cfg: ndt_align(
+            src, grid, dataclasses.replace(cfg, max_iterations=1), off))
+        steps = int(full.iterations)
+        per_step = (s_full - s_one) / (steps - 1) if steps > 1 else float("nan")
+        log(f"ndt_modes pair (27 cells, {int(grid.valid.sum())} valid cells) {name}: "
+            f"{ms:.2f} ms, {int(res[name].iterations)} Newton steps; from 10 cm off: "
+            f"{steps} steps, {s_full} host syncs, {s_one} at one step: {per_step:.2f} "
+            f"per Newton step")
+    pair_err = float((res["auto sweep"].transform - res["gather"].transform).abs().max())
+    log(f"ndt_modes pair: auto sweep against the gather path {pair_err:.3e} (gate {NDT_PAIR_TOL})")
+    if not pair_err <= NDT_PAIR_TOL:
+        raise AssertionError(f"ndt_modes pair: the sweep differs from the gather path {pair_err}")
+    return total, runs["exact"][0].total_transforms
+
+
+def sor_oracle(xyz: np.ndarray, valid: np.ndarray, mean_k: int, stddev_mult: float):
+    """(keep, mean distances, threshold) of StatisticalOutlierRemoval in
+    float64 by a scipy kd-tree (``mean_k`` + 1 neighbours, self first)."""
+    from scipy.spatial import cKDTree
+
+    pts = xyz[valid].astype(np.float64)
+    d, _ = cKDTree(pts).query(pts, k=mean_k + 1, workers=-1)
+    md = np.full(len(xyz), np.nan)
+    md[valid] = d[:, 1:].mean(axis=1)
+    thresh = np.nanmean(md) + stddev_mult * np.nanstd(md)
+    return valid & (md <= thresh), md, thresh
+
+
+def normals_oracle(xyz: np.ndarray, valid: np.ndarray, radius: float):
+    """(normals, valid, the degenerate neighbourhoods, covariances,
+    smallest eigenvalues) of radius-search normal estimation in float64:
+    scipy ``query_ball_point``, each point's neighbour covariance, its
+    smallest eigenvector flipped toward the origin. Degenerate:
+    neighbourhoods whose two smallest eigenvalues lie within
+    ``NORMAL_GAP`` m^2 (points near a line), where f32 moments at metre
+    coordinates (errors about 1e-7 m^2) leave the direction within the
+    two smallest eigenvectors' plane undetermined."""
+    from scipy.spatial import cKDTree
+
+    pts = xyz.astype(np.float64)
+    idx = np.flatnonzero(valid)
+    lists = cKDTree(pts[idx]).query_ball_point(pts[idx], radius, workers=-1)
+    counts = np.array([len(x) for x in lists])
+    rows = np.repeat(np.arange(len(idx)), counts)
+    nb = pts[idx][np.concatenate(lists)]
+    n = np.maximum(counts, 1)[:, None]
+    mu = np.stack([np.bincount(rows, nb[:, j], len(idx)) for j in range(3)], 1) / n
+    d = nb - mu[rows]
+    cov = np.stack([np.stack([np.bincount(rows, d[:, a] * d[:, b], len(idx))
+                              for b in range(3)], -1) for a in range(3)], -2) / n[..., None]
+    w, v = np.linalg.eigh(cov)
+    nrm = v[..., 0]
+    nrm = np.where(((nrm * pts[idx]).sum(-1) > 0)[:, None], -nrm, nrm)
+    out = np.zeros((len(xyz), 3))
+    out[idx] = nrm
+    ok = np.zeros(len(xyz), bool)
+    ok[idx] = counts >= 3
+    degenerate = np.zeros(len(xyz), bool)
+    degenerate[idx] = w[:, 1] - w[:, 0] < NORMAL_GAP
+    cov_all = np.zeros((len(xyz), 3, 3))
+    cov_all[idx] = cov
+    w0 = np.zeros(len(xyz))
+    w0[idx] = w[:, 0]
+    return out, ok, degenerate, cov_all, w0
+
+
+def phase_input_side(dev, card, seq, clouds, totals):
+    """The input side on one rendered 640x480 frame: the two filters on
+    its 307,200 slots against numpy / scipy oracles, radius normals at r
+    = 0.05 and 0.1 on its voxel-downsampled cloud against a float64
+    oracle, Brown-Conrady deprojection against the numpy forward model,
+    the world-frame trajectory render of ``totals`` against the port's
+    CPU render, and ``python -m rspc_tpu_torch.examples.pcd_visualization``
+    on a PCD of that cloud. Every wall is the card's (synchronized)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.io.pcd import save_pcd
+    from rspc_tpu_torch.ops.deproject import Intrinsics, deproject_depth
+    from rspc_tpu_torch.ops.filters import passthrough, statistical_outlier_removal
+    from rspc_tpu_torch.ops.normals import estimate_normals_radius
+    from rspc_tpu_torch.ops.voxel import voxel_downsample
+    from rspc_tpu_torch.viz.trajectory import (
+        DEPTH_TO_WORLD, render_trajectory, trajectory_from_transforms)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    walls = {}
+    cuda_build.reset_counts()
+    cloud = clouds[0].flatten()
+    xyz, valid = cloud.xyz.cpu().numpy(), cloud.valid.cpu().numpy()
+    kept, walls["passthrough"] = timed(lambda: passthrough(cloud, "z", 0.2, 2.5))
+    want = valid & (xyz[:, 2] >= np.float32(0.2)) & (xyz[:, 2] <= np.float32(2.5))
+    if not np.array_equal(kept.valid.cpu().numpy(), want):
+        raise AssertionError("passthrough differs from its numpy mask")
+
+    statistical_outlier_removal(cloud.map(lambda x: x[:4096]), mean_k=50)  # warm-up
+    sor, walls["statistical_outlier_removal"] = timed(
+        lambda: statistical_outlier_removal(cloud, mean_k=50, stddev_mult=1.5))
+    keep_o, md, thresh = sor_oracle(xyz, valid, 50, 1.5)
+    near = np.abs(md - thresh) <= 1e-6 * thresh
+    differ = (sor.valid.cpu().numpy() != keep_o) & ~near
+    log(f"input_side SOR (mean_k 50, 1.5 sigma) on {int(valid.sum())} of {len(valid)} slots: "
+        f"kept {int(sor.valid.sum())}, the oracle {int(keep_o.sum())}; {int(near.sum())} within "
+        f"1e-6 of the threshold {thresh:.6e}; {int(differ.sum())} others differ")
+    if differ.any():
+        raise AssertionError(f"SOR differs from the cKDTree oracle at {int(differ.sum())} points")
+
+    down = voxel_downsample(cloud, 0.02, 65536)
+    d_xyz, d_valid = down.xyz.cpu().numpy(), down.valid.cpu().numpy()
+    for r in (0.05, 0.1):
+        (nrm, ok), walls[f"normals r={r}"] = timed(lambda r=r: estimate_normals_radius(down, r))
+        o_nrm, o_ok, degen, cov, w0 = normals_oracle(d_xyz, d_valid, r)
+        ok = ok.cpu().numpy()
+        n64 = nrm.cpu().numpy().astype(np.float64)
+        cos = np.abs((n64 * o_nrm).sum(-1))
+        # where the two smallest eigenvalues nearly meet, |cos| is not
+        # determined; the normal must still lie in their plane: its
+        # Rayleigh quotient on the float64 covariance at the smallest one
+        rq = np.einsum("ni,nij,nj->n", n64, cov, n64) - w0
+        gate, line = o_ok & ~degen, o_ok & degen
+        line_cos = f"{cos[line].min():.6f}" if line.any() else "-"
+        line_rq = f"{rq[line].max():.3e}" if line.any() else "-"
+        log(f"input_side normals r={r} on {int(d_valid.sum())} points: valid {int(ok.sum())}, "
+            f"the oracle {int(o_ok.sum())} (masks differ at {int((ok != o_ok).sum())}); "
+            f"min |cos| {cos[gate].min():.6f} over {int(gate.sum())} points (gate 0.999); "
+            f"{int(line.sum())} near-collinear neighbourhoods (eigenvalue gap < {NORMAL_GAP} m^2): "
+            f"min |cos| {line_cos}, {int((cos[line] < 0.999).sum())} below 0.999, "
+            f"max n^T C n - lambda_min {line_rq} m^2 (gate {NORMAL_RQ_TOL})")
+        if ((ok != o_ok).any() or not cos[gate].min() >= 0.999
+                or (line.any() and not rq[line].max() <= NORMAL_RQ_TOL)):
+            raise AssertionError(f"radius normals r={r} differ from the float64 oracle")
+
+    coeffs = (0.1, -0.05, 0.001, 0.001, 0.01)
+    intr = Intrinsics.simple(WIDTH, HEIGHT)
+    intr = Intrinsics(intr.width, intr.height, intr.fx, intr.fy, intr.ppx, intr.ppy, coeffs)
+    depth = torch.full((HEIGHT, WIDTH), 1000, dtype=torch.int32, device=dev)
+    pts, walls["deproject (distorted)"] = timed(lambda: deproject_depth(depth, intr))
+    p = pts.cpu().numpy().astype(np.float64)
+    xu, yu = p[..., 0] / p[..., 2], p[..., 1] / p[..., 2]
+    k1, k2, p1, p2, k3 = coeffs
+    r2 = xu * xu + yu * yu
+    f = 1 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3
+    u, v = np.meshgrid(np.arange(WIDTH), np.arange(HEIGHT))
+    derr = max(np.abs(xu * f + 2 * p1 * xu * yu + p2 * (r2 + 2 * xu * xu)
+                      - (u - intr.ppx) / intr.fx).max(),
+               np.abs(yu * f + 2 * p2 * xu * yu + p1 * (r2 + 2 * yu * yu)
+                      - (v - intr.ppy) / intr.fy).max())
+    log(f"input_side deproject_depth with Brown-Conrady {coeffs} at {WIDTH}x{HEIGHT}: the "
+        f"numpy forward model gives back the pixel rays within {derr:.3e} (gate {UNDISTORT_TOL})")
+    if not derr <= UNDISTORT_TOL:
+        raise AssertionError(f"undistortion error {derr}")
+
+    tot = totals.cpu().numpy()
+    path = trajectory_from_transforms(tot) @ DEPTH_TO_WORLD[:3, :3].T
+    frusta = [DEPTH_TO_WORLD @ m for m in tot]
+    kw = dict(pose=DEPTH_TO_WORLD, frusta=frusta, width=WIDTH, height=HEIGHT)
+    img, walls["render_trajectory"] = timed(lambda: render_trajectory(cloud, path, **kw))
+    cpu_img = render_trajectory(cloud.map(lambda x: x.cpu()), path, **kw)
+    differ = int((img != cpu_img).any(-1).sum())
+    log(f"input_side render_trajectory {WIDTH}x{HEIGHT}: {differ} pixels differ from the CPU "
+        f"render; {int((img != 153).any(-1).sum())} drawn")
+    if differ > CLI_VIEW_TIE_FRAC * WIDTH * HEIGHT or not (img != 153).any():
+        raise AssertionError(f"render_trajectory: {differ} pixels differ from the CPU render")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pcd(os.path.join(tmp, "frame0.pcd"), down, keep_invalid=False)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rspc_tpu_torch.examples.pcd_visualization", "frame0.pcd"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        walls["pcd_visualization (process)"] = time.perf_counter() - t0
+        png = os.path.join(tmp, "frame0.pcd.view.png")
+        drawn = int((read_png(png) != 153).any(-1).sum()) if os.path.exists(png) else 0
+        log(f"input_side pcd_visualization: rc {proc.returncode}; "
+            f"{proc.stdout.strip()!r}; PNG pixels drawn {drawn}")
+        if proc.returncode != 0 or drawn == 0:
+            raise AssertionError(f"pcd_visualization failed: {proc.stderr[-2000:]}")
+    launches, plain = dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+    if any(plain.values()):
+        raise AssertionError(f"input_side: plain versions on CUDA tensors {plain}")
+    log(f"input_side walls on {card} (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+    return launches
+
+
 def _box(n: int, seed: int, dev):
     """``n`` points on the faces of a unit box 2 m ahead."""
     import torch
@@ -1976,6 +2293,9 @@ def main() -> int:
     per_path["auto"] = timed("auto", phase_auto, dev, card)
     per_path["serving"] = timed("serving", phase_serving, dev, card)
     per_path["scaleout"] = timed("scaleout", phase_scaleout, dev, card)
+    per_path["ndt_modes"], exact_totals = timed("ndt_modes", phase_ndt_modes, dev, seq, clouds)
+    per_path["input_side"] = timed("input_side", phase_input_side, dev, card, seq, clouds,
+                                   exact_totals)
     log(f"phase walls (s): {walls}")
     log(f"launches per path (each from counts set to 0): {per_path}")
     nn["max_abs_err"] = max(nn["max_abs_err"], *(v["err"] for v in robust_nn.values()))

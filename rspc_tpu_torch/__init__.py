@@ -9,7 +9,7 @@ against), rebuilt on PyTorch for one NVIDIA H100:
   interop.py        -- numpy <-> port conversions the parity tests use
   ops/              -- transforms, image ops, Canny (kernel B3), normals,
                        edges, voxel grid, NN sweep (kernel B1), rigid fits,
-                       keypoints and RANSAC
+                       keypoints and RANSAC, the filters
   registration/     -- ICP, NDT, anchor refinement, the fused chain,
                        ``NDTEdgeBasedRegistration``
   parallel/         -- serving and scale-out on ``torch.distributed``:
@@ -18,7 +18,9 @@ against), rebuilt on PyTorch for one NVIDIA H100:
   capture/          -- the synthetic RGBD renderer, replay, the v2
                        capture with its visual odometry
   io/               -- PCD files, the dataset directory, the native codec
-  viz/              -- the headless renderer, PNG, the terminal viewer
+  viz/              -- the headless renderer, PNG, the terminal viewer,
+                       the world-frame trajectory renderer, overlays
+  examples/         -- the standalone viewers (``python -m``)
   utils/            -- logging, stage timers, profiler traces
   cli.py            -- the reference's ``rs-pcl`` command line
   cuda_build.py     -- builds ``csrc/*.cu`` with nvcc on first use and

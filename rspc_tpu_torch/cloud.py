@@ -209,6 +209,16 @@ class OrganizedCloud(_TensorFields):
         return OrganizedCloud(t(np.nan_to_num(xyz)), t(rgb), t(valid))
 
 
+def concatenate(a: Cloud, b: Cloud) -> Cloud:
+    """``b``'s points after ``a``'s (PCL ``operator+`` on clouds), the
+    capacity the sum, compacted so that the valid points lead; an
+    optional field survives when both clouds carry it."""
+    cat = lambda name: torch.cat([getattr(a, name), getattr(b, name)], dim=0)
+    opt = {name: cat(name) for name in OPTIONAL_VEC_FIELDS
+           if getattr(a, name) is not None and getattr(b, name) is not None}
+    return compact(Cloud(cat("xyz"), cat("rgb"), cat("valid"), **opt))
+
+
 def compact(c: Cloud, capacity: Optional[int] = None) -> Cloud:
     """Stable-compact valid points to the front (static output capacity);
     the port of ``rspc_tpu.cloud.compact``."""

@@ -117,6 +117,7 @@ class NDTConfig:
     # safeguarded bisection against a frozen neighborhood. Costs one
     # neighborhood gather per trial; measured deltas vs the frozen mode
     # are recorded in RESULTS.md (the divergence PARITY.md X2 documents).
+    # In this package: registration/ndt.py::_more_thuente_exact.
     pcl_exact_line_search: bool = False
     # Score neighborhood per source point: 27 = full 3^3 adjacency
     # (exactly PCL's radiusSearch(resolution), the default); 7 = center +

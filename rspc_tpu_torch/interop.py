@@ -1,7 +1,9 @@
 """Conversions between the JAX package's state (in numpy form) and the
 port's, so both packages compute from identical inputs.
 
-State here is clouds, NDT grids and configs (the system has no weights).
+State here is clouds, NDT grids (and with them the compact cells the
+dense sweep derives from a grid), configs, camera intrinsics and pose
+lists (the system has no weights).
 The numpy form of an ``rspc_tpu`` cloud is ``{"xyz", "rgb", "valid"}``
 plus ``"normal"`` where carried, as ``np.asarray`` of each field gives
 them; nothing here imports jax.
@@ -20,6 +22,7 @@ import torch
 
 from rspc_tpu_torch import config as _config
 from rspc_tpu_torch.cloud import OPTIONAL_VEC_FIELDS, Cloud, OrganizedCloud
+from rspc_tpu_torch.ops.deproject import Intrinsics
 from rspc_tpu_torch.registration.ndt import NDTConfig, NDTGrid, ndt_grid_from_moments
 
 
@@ -53,6 +56,18 @@ def ndt_grid_from_numpy(moments: np.ndarray, origin: np.ndarray,
         torch.from_numpy(np.array(origin, np.int32)).to(device),
         config,
     )
+
+
+def intrinsics_from_dict(values: dict) -> Intrinsics:
+    """``dataclasses.asdict`` of the JAX package's ``Intrinsics``
+    (Brown-Conrady ``coeffs`` included) -> the port's."""
+    return _build(Intrinsics, values)
+
+
+def poses_from_numpy(poses, device="cpu") -> torch.Tensor:
+    """A pose list (4x4 arrays, or one ``[n, 4, 4]`` array, such as the
+    JAX package's ``total_transforms``) -> f32 ``[n, 4, 4]`` on ``device``."""
+    return torch.from_numpy(np.array(poses, np.float32).reshape(-1, 4, 4)).to(device)
 
 
 def _build(cls, values: dict):

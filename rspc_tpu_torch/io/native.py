@@ -1,6 +1,7 @@
 """ctypes binding to the repository's native I/O helpers
 (``native/librspc_native.so``), the port's own copy of
-``rspc_tpu/io/native.py``: the LZF codec and the threaded dataset loader.
+``rspc_tpu/io/native.py``: the LZF codec, the threaded dataset loader
+and the CPU kd-tree.
 
 The library is built from ``native/*.cpp`` with ``make -C native`` the
 first time it is needed (into a temporary name, then renamed, so that
@@ -69,6 +70,15 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.rspc_lzf_decompress.argtypes = [
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
     ]
+    lib.rspc_kdtree_build.restype = ctypes.c_void_p
+    lib.rspc_kdtree_build.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.rspc_kdtree_nn.restype = None
+    lib.rspc_kdtree_nn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.rspc_kdtree_free.restype = None
+    lib.rspc_kdtree_free.argtypes = [ctypes.c_void_p]
     lib.rspc_load_dataset.restype = ctypes.c_int64
     lib.rspc_load_dataset.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int64,
@@ -103,6 +113,40 @@ def lzf_decompress(data: bytes, expected: int) -> Optional[bytes]:
     if n != expected:
         return None
     return out.raw
+
+
+class KDTree:
+    """CPU kd-tree nearest-neighbour oracle (the ``pcl::KdTreeFLANN``
+    role, for checking device results; not on the device path). Raises
+    RuntimeError when the library is unavailable."""
+
+    def __init__(self, xyz: np.ndarray):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._xyz = np.ascontiguousarray(xyz, np.float32)
+        self._handle = lib.rspc_kdtree_build(
+            self._xyz.ctypes.data_as(ctypes.c_void_p), self._xyz.shape[0]
+        )
+
+    def query(self, queries: np.ndarray):
+        """(squared distances f32[M], indices i32[M]) of each query's
+        nearest point."""
+        q = np.ascontiguousarray(queries, np.float32)
+        m = q.shape[0]
+        idx = np.empty(m, np.int32)
+        d2 = np.empty(m, np.float32)
+        self._lib.rspc_kdtree_nn(
+            self._handle, q.ctypes.data_as(ctypes.c_void_p), m,
+            idx.ctypes.data_as(ctypes.c_void_p), d2.ctypes.data_as(ctypes.c_void_p),
+        )
+        return d2, idx
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.rspc_kdtree_free(self._handle)
+            self._handle = None
 
 
 def load_dataset(paths, capacity: int):

@@ -1,10 +1,12 @@
 """Depth-frame deprojection and RGB texture mapping (port of
-``rspc_tpu/ops/deproject.py``, pinhole model without distortion).
+``rspc_tpu/ops/deproject.py``).
 
-Camera model: ``x = (u - ppx) / fx``, ``y = (v - ppy) / fy``,
-``point = depth * (x, y, 1)``; the texture lookup uses the reference's
-clamp-to-edge pixel convention ``x = clamp(int(u*W + .5), 0, W-1)``.
-Brown-Conrady undistortion is not ported yet (ROADMAP.md Queue A).
+Camera model: pinhole with optional (inverse) Brown-Conrady distortion,
+as librealsense's ``rs2_deproject_pixel_to_point``: ``x = (u - ppx) /
+fx``, ``y = (v - ppy) / fy``, undistorted by fixed-point iteration when
+the coefficients are nonzero, ``point = depth * (x, y, 1)``; the texture
+lookup uses the reference's clamp-to-edge pixel convention ``x =
+clamp(int(u*W + .5), 0, W-1)``.
 """
 
 from __future__ import annotations
@@ -42,15 +44,27 @@ def pixel_grid(h: int, w: int, device):
     return u, v
 
 
+def _undistort_brown_conrady(x, y, coeffs, iters: int = 10):
+    """Invert the Brown-Conrady forward model by fixed-point iteration
+    (librealsense does the same), each step in the JAX package's order
+    of operations."""
+    k1, k2, p1, p2, k3 = coeffs
+    xu, yu = x, y
+    for _ in range(iters):
+        r2 = xu * xu + yu * yu
+        icdist = 1.0 / (1.0 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2 * p1 * xu * yu + p2 * (r2 + 2 * xu * xu)
+        dy = 2 * p2 * xu * yu + p1 * (r2 + 2 * yu * yu)
+        xu, yu = (x - dx) * icdist, (y - dy) * icdist
+    return xu, yu
+
+
 def deproject_depth(
     depth: torch.Tensor, intr: Intrinsics, depth_scale: float = 0.001
 ) -> torch.Tensor:
     """Integer Z16 (or float metres) depth ``[H, W]`` -> organized
-    ``f32[H, W, 3]`` xyz; zero depth yields the origin."""
-    if any(c != 0.0 for c in intr.coeffs):
-        raise NotImplementedError(
-            "Brown-Conrady undistortion is not ported yet (ROADMAP.md Queue A)"
-        )
+    ``f32[H, W, 3]`` xyz; zero depth yields the origin. Nonzero
+    ``intr.coeffs`` are undone by ``_undistort_brown_conrady``."""
     h, w = depth.shape
     if depth.dtype == torch.float32:
         z = depth
@@ -61,7 +75,10 @@ def deproject_depth(
     # a product with the f32 reciprocal, so that the points equal its bits
     rx = float(np.float32(1) / np.float32(intr.fx))
     ry = float(np.float32(1) / np.float32(intr.fy))
-    return torch.stack([((u - intr.ppx) * rx) * z, ((v - intr.ppy) * ry) * z, z], dim=-1)
+    x, y = (u - intr.ppx) * rx, (v - intr.ppy) * ry
+    if any(c != 0.0 for c in intr.coeffs):
+        x, y = _undistort_brown_conrady(x, y, intr.coeffs)
+    return torch.stack([x * z, y * z, z], dim=-1)
 
 
 def project_points(xyz: torch.Tensor, intr: Intrinsics):

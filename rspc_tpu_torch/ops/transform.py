@@ -71,6 +71,11 @@ def make_rigid(rotation: torch.Tensor, translation: torch.Tensor | None = None) 
     return torch.cat([top, bottom], dim=-2)
 
 
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Transform composition a o b (apply b first): ``a @ b``."""
+    return a @ b
+
+
 def imu_guess_full(theta: torch.Tensor) -> torch.Tensor:
     """The ICP-edge scheme's IMU guess, all three axes mapped
     (src/icp_edge_based_registration.hpp:86-92):

@@ -3,26 +3,31 @@
 ``NormalDistributionsTransform`` semantics).
 
 The target lives in a DENSE, INCREMENTAL ``[D^3]`` voxel grid of raw
-corner-residual moments (each frame added as one per-cell segment sum);
-cells are finalized into means and eigenvalue-inflated inverse
-covariances with the batched Jacobi ``eigh3``. The objective uses the
-widened-table gather (one row gather per point per Newton iteration,
-neighbourhood frozen for the derivatives and the line search),
+corner-residual moments (each frame added as one per-cell segment sum,
+``ndt_grid_add``); cells are finalized into means and eigenvalue-inflated
+inverse covariances with the batched Jacobi ``eigh3``. The objective
+uses the widened-table gather (one row gather per point per Newton
+iteration, neighbourhood frozen for the derivatives and the line search)
+or, with a positive resolved ``sweep_cells``, the dense compact-cell
+sweep (``_compact_cells``: the valid cells compacted once per align,
+every point scored against all of them under an adjacency mask);
 single-pass analytic gradient and Hessian through a 10x10 gram matmul,
 and the closed-form first and second derivatives of
 ``R = Rx(a) Ry(b) Rz(c)`` in place of ``jacfwd``.
 
-The Newton ``while_loop`` and the safeguarded More-Thuente line search
-become Python loops; each stop test reads one device bool (one host sync
-per Newton iteration and one per line-search trial). ``sweep_cells=-1``
-(auto) resolves as in the JAX package: the exact gather path for the 7-
-and 1-cell neighbourhoods. ``group`` (the JAX ``psum_axis``) shards the
-source over a process group's ranks, the grid replicated: the score, its
+The Newton ``while_loop`` and the line searches become Python loops;
+each stop test reads one device bool. The default line search
+(``_more_thuente``, the JAX package's frozen-neighbourhood safeguarded
+bisection) and ``pcl_exact_line_search`` (``_more_thuente_exact``, PCL's
+``computeStepLengthMT``, the neighbourhood refreshed at every trial)
+each cost one host sync per trial, and the Newton loop one per
+iteration. ``sweep_cells=-1`` (auto) resolves as in the JAX package: 512
+cells for the 27-cell neighbourhood, the exact gather path for the 7-
+and 1-cell ones. ``group`` (the JAX ``psum_axis``) shards the source
+over a process group's ranks, the grid replicated: the score, its
 gradient and Hessian are additive over source points, so each
 evaluation ends in one all-reduce of at most 43 scalars and every rank
-runs the same Newton steps (``parallel/ndt.py``). Not ported yet
-(ROADMAP.md Queue A): the PCL-exact line search and the compact-cell
-sweep (a positive resolved ``sweep_cells``).
+runs the same Newton steps and line-search trials (``parallel/ndt.py``).
 """
 
 from __future__ import annotations
@@ -161,13 +166,16 @@ def ndt_grid_from_moments(
                    origin=origin)
 
 
+def ndt_grid_add(grid: NDTGrid, cloud: Cloud, config: NDTConfig = NDTConfig()) -> NDTGrid:
+    """Accumulate a cloud's points into the grid and re-finalize."""
+    moments = ndt_grid_update_moments(grid.moments, grid.origin, cloud, config)
+    return ndt_grid_from_moments(moments, grid.origin, config)
+
+
 def build_ndt_grid(target: Cloud, config: NDTConfig = NDTConfig()) -> NDTGrid:
     """One-shot grid: origin from the cloud's own bounding box."""
     origin = ndt_grid_origin(target, config)
-    moments = ndt_grid_update_moments(
-        ndt_grid_init(origin, config).moments, origin, target, config
-    )
-    return ndt_grid_from_moments(moments, origin, config)
+    return ndt_grid_add(ndt_grid_init(origin, config), target, config)
 
 
 def _gauss_coeffs(config: NDTConfig):
@@ -267,16 +275,41 @@ def _resolve_sweep_cells(config: NDTConfig) -> int:
     return 512 if config.neighborhood == 27 else 0
 
 
+def _compact_cells(grid: NDTGrid, config: NDTConfig):
+    """The grid's VALID cells (typically a few hundred of D^3) compacted
+    into ``[C]``-row tables for the dense sweep, C the resolved
+    ``sweep_cells``: (means [C,3], inverse-covariance unique components
+    [C,6], valid [C], grid-relative cell coords i32[C,3]).
+
+    Mask equivalence with the gather path: the sweep scores point n
+    against compact cell c when ``adjacency(rel0_n, cellco_c) & within
+    radius & cell valid``; the gather path scores (n, offset j) when
+    ``in_bounds(rel0_n + off_j) & cell valid & within radius``. For every
+    in-bounds neighbour the two enumerate the same (point, cell) pairs:
+    adjacency(rel0, co) holds iff co = rel0 + off_j for some offset j of
+    the neighbourhood, and a compact cell is an in-bounds cell. So the
+    two paths are the same masked sum in another reduction order. The
+    sort is stable (valid cells first, each class in cell-index order),
+    so the compacted order, and with it the order of the sums, is the
+    JAX package's. Valid cells beyond the cap are dropped."""
+    d = config.dense_grid_dim
+    order = torch.argsort((~grid.valid).to(torch.uint8), stable=True)
+    sel = order[:_resolve_sweep_cells(config)]
+    icg = grid.inv_covs.index_select(0, sel)
+    ic6 = torch.stack([icg[:, 0, 0], icg[:, 0, 1], icg[:, 0, 2],
+                       icg[:, 1, 1], icg[:, 1, 2], icg[:, 2, 2]], dim=-1)
+    cellco = torch.stack([sel // (d * d), (sel // d) % d, sel % d], dim=-1).to(torch.int32)
+    return grid.means.index_select(0, sel), ic6, grid.valid.index_select(0, sel), cellco
+
+
 def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
     """Returns (objective, lookup, fixed_objective, fixed_value_grad,
     fixed_value_grad_hess) with the JAX package's contracts: f(p) =
     -score(p), minimized by Newton; ``lookup(p)`` freezes the
-    neighbourhood at pose p. With ``group`` every value, gradient and
-    Hessian is summed over its ranks' source shards."""
-    if _resolve_sweep_cells(config) > 0:
-        raise NotImplementedError(
-            "the compact-cell NDT sweep is not ported yet (ROADMAP.md Queue A)"
-        )
+    neighbourhood at pose p (per-point rows ``[N,k]`` from the gather
+    path, or the compact tables ``[C]`` and an ``[N,C]`` mask from the
+    dense sweep). With ``group`` every value, gradient and Hessian is
+    summed over its ranks' source shards."""
     d1, d2 = _gauss_coeffs(config)
     res = config.resolution
     xyz, valid = src.xyz, src.valid
@@ -288,35 +321,56 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
     d = config.dense_grid_dim
     sym = torch.from_numpy(_SYM).to(dev)
 
-    # Per-cell stats packed into one [G,10] row (mean, 6 unique inverse
-    # covariance components, validity), widened so that column block j
-    # holds the row of the cell at flat offset j: one row gather per
-    # point per Newton iteration. The roll's wraparound aliases rows only
-    # where a per-axis bound is crossed, and in_b masks exactly those.
-    icg = grid.inv_covs
-    packed = torch.cat(
-        [grid.means, icg[:, 0, 0:3], icg[:, 1, 1:3], icg[:, 2, 2:3],
-         grid.valid.to(xyz.dtype)[:, None]],
-        dim=1,
-    )
-    g_cells = d * d * d
-    flat_offs = [int((o[0] * d + o[1]) * d + o[2]) for o in offs_np]
-    wide = torch.cat([torch.roll(packed, -f, dims=0) for f in flat_offs], dim=1)
+    if _resolve_sweep_cells(config) > 0:
+        mu_cells, ic6_cells, valid_cells, cellco = _compact_cells(grid, config)
 
-    def lookup(p):
-        pts = apply_transform(_pose_to_matrix(p), xyz)
-        rel0 = torch.floor(pts / res).to(torch.int32) - grid.origin
-        rel = rel0[:, None, :] + offs[None, :, :]
-        in_b = ((rel >= 0) & (rel < d)).all(dim=-1)
-        base = torch.remainder((rel0[:, 0] * d + rel0[:, 1]) * d + rel0[:, 2], g_cells)
-        row = wide.index_select(0, base.long()).reshape(-1, k, 10)
-        mu = row[..., 0:3]
-        ic6 = row[..., 3:9]
-        hit = in_b & (row[..., 9] > 0.5)
-        x = pts[:, None, :] - mu
-        within = (x * x).sum(-1) <= res * res  # radiusSearch(res)
-        mask = (hit & within).to(xyz.dtype) * w_src[:, None]
-        return mu, ic6, mask
+        def lookup(p):
+            """The loop-invariant compact tables and the [N,C] mask at
+            pose p: no gather in the Newton loop."""
+            pts = apply_transform(_pose_to_matrix(p), xyz)
+            rel0 = torch.floor(pts / res).to(torch.int32) - grid.origin
+            diff = (cellco[None, :, :] - rel0[:, None, :]).abs()  # [N,C,3]
+            if config.neighborhood == 27:
+                adj = (diff <= 1).all(dim=-1)
+            elif config.neighborhood == 7:
+                adj = diff.sum(dim=-1) <= 1
+            else:
+                adj = (diff == 0).all(dim=-1)
+            x = pts[:, None, :] - mu_cells[None, :, :]
+            within = (x * x).sum(-1) <= res * res
+            mask = (adj & within & valid_cells[None, :]).to(xyz.dtype) * w_src[:, None]
+            return mu_cells, ic6_cells, mask
+    else:
+        # Per-cell stats packed into one [G,10] row (mean, 6 unique
+        # inverse covariance components, validity), widened so that
+        # column block j holds the row of the cell at flat offset j: one
+        # row gather per point per Newton iteration. The roll's
+        # wraparound aliases rows only where a per-axis bound is
+        # crossed, and in_b masks exactly those.
+        icg = grid.inv_covs
+        packed = torch.cat(
+            [grid.means, icg[:, 0, 0:3], icg[:, 1, 1:3], icg[:, 2, 2:3],
+             grid.valid.to(xyz.dtype)[:, None]],
+            dim=1,
+        )
+        g_cells = d * d * d
+        flat_offs = [int((o[0] * d + o[1]) * d + o[2]) for o in offs_np]
+        wide = torch.cat([torch.roll(packed, -f, dims=0) for f in flat_offs], dim=1)
+
+        def lookup(p):
+            pts = apply_transform(_pose_to_matrix(p), xyz)
+            rel0 = torch.floor(pts / res).to(torch.int32) - grid.origin
+            rel = rel0[:, None, :] + offs[None, :, :]
+            in_b = ((rel >= 0) & (rel < d)).all(dim=-1)
+            base = torch.remainder((rel0[:, 0] * d + rel0[:, 1]) * d + rel0[:, 2], g_cells)
+            row = wide.index_select(0, base.long()).reshape(-1, k, 10)
+            mu = row[..., 0:3]
+            ic6 = row[..., 3:9]
+            hit = in_b & (row[..., 9] > 0.5)
+            x = pts[:, None, :] - mu
+            within = (x * x).sum(-1) <= res * res  # radiusSearch(res)
+            mask = (hit & within).to(xyz.dtype) * w_src[:, None]
+            return mu, ic6, mask
 
     def _common(p, mu, ic6, mask):
         pts = apply_transform(_pose_to_matrix(p), xyz)
@@ -432,6 +486,130 @@ def _more_thuente(vg, p, direction, phi0, g0, step_init, step_max,
     return a_result, direction
 
 
+def _cubic_min(a_l, f_l, g_l, a_t, f_t, g_t):
+    """Minimizer of the cubic through (a_l, f_l, g_l) and (a_t, f_t, g_t)
+    (Sun & Yuan 2006, eq. 2.4.52 / 2.4.56, as PCL uses them)."""
+    z = 3 * (f_t - f_l) / (a_t - a_l) - g_t - g_l
+    w = torch.sqrt(torch.clamp(z * z - g_t * g_l, min=0.0))
+    denom = g_t - g_l + 2 * w
+    safe = denom.abs() > 1e-30
+    ac = a_l + (a_t - a_l) * (w - g_l - z) / torch.where(safe, denom, 1.0)
+    return torch.where(safe, ac, a_t)
+
+
+def _quad_min(a_l, f_l, g_l, a_t, f_t):
+    """Minimizer of the quadratic through f_l, g_l and f_t (eq. 2.4.2)."""
+    denom = g_l - (f_l - f_t) / (a_l - a_t)
+    safe = denom.abs() > 1e-30
+    aq = a_l - 0.5 * (a_l - a_t) * g_l / torch.where(safe, denom, 1.0)
+    return torch.where(safe, aq, a_t)
+
+
+def _secant_min(a_l, g_l, a_t, g_t):
+    """Minimizer of the quadratic through g_l and g_t (eq. 2.4.5)."""
+    denom = g_l - g_t
+    safe = denom.abs() > 1e-30
+    return torch.where(safe, a_l - (a_l - a_t) / torch.where(safe, denom, 1.0) * g_l, a_t)
+
+
+def _trial_value(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
+    """PCL ``trialValueSelectionMT``, cases 1-4, branch-free."""
+    a_c = _cubic_min(a_l, f_l, g_l, a_t, f_t, g_t)
+    a_q = _quad_min(a_l, f_l, g_l, a_t, f_t)
+    a_s = _secant_min(a_l, g_l, a_t, g_t)
+    # case 1: f_t > f_l
+    c1 = torch.where((a_c - a_l).abs() < (a_q - a_l).abs(), a_c, 0.5 * (a_q + a_c))
+    # case 2: f_t <= f_l, g_t * g_l < 0
+    c2 = torch.where((a_c - a_t).abs() >= (a_s - a_t).abs(), a_c, a_s)
+    # case 3: |g_t| <= |g_l| (same-sign gradients, still decreasing)
+    c3_next = torch.where((a_c - a_t).abs() < (a_s - a_t).abs(), a_c, a_s)
+    c3 = torch.where(a_t > a_l, torch.minimum(a_t + 0.66 * (a_u - a_t), c3_next),
+                     torch.maximum(a_t + 0.66 * (a_u - a_t), c3_next))
+    # case 4: the cubic against the upper endpoint
+    c4 = _cubic_min(a_u, f_u, g_u, a_t, f_t, g_t)
+    return torch.where(f_t > f_l, c1, torch.where(
+        g_t * g_l < 0, c2, torch.where(g_t.abs() <= g_l.abs(), c3, c4)))
+
+
+def _update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
+    """PCL ``updateIntervalMT``: cases U1-U3, else converged."""
+    u1 = f_t > f_l
+    u2 = ~u1 & (g_t * (a_l - a_t) > 0)
+    u3 = ~u1 & (g_t * (a_l - a_t) < 0)
+    lo = u2 | u3
+    new_u = (torch.where(u1, a_t, torch.where(u3, a_l, a_u)),
+             torch.where(u1, f_t, torch.where(u3, f_l, f_u)),
+             torch.where(u1, g_t, torch.where(u3, g_l, g_u)))
+    new_l = (torch.where(lo, a_t, a_l), torch.where(lo, f_t, f_l), torch.where(lo, g_t, g_l))
+    return (*new_l, *new_u, ~(u1 | lo))
+
+
+def _more_thuente_exact(vg, p, direction, phi0, g0, step_init, step_max,
+                        config: NDTConfig):
+    """The full More-Thuente line search with PCL ``computeStepLengthMT``
+    semantics (pcl/registration/impl/ndt.hpp; More & Thuente 1994): the
+    trial values from the cubic / quadratic / secant interpolants
+    (``_trial_value``, cases 1-4), the interval updates U1-U3, and the
+    switch from the auxiliary function psi to phi once psi <= 0 with
+    psi' >= 0. ``vg`` refreshes the voxel neighbourhood at every trial,
+    as PCL's per-trial ``computeDerivatives`` / ``radiusSearch`` does.
+    The last trial is returned as it is (no improved-over-phi0 gate).
+
+    The JAX ``while_loop`` is a host loop whose stop test (the strong
+    Wolfe conditions, a converged interval, a zero directional
+    derivative) reads one device bool per trial."""
+    mu, nu = 1e-4, 0.9
+    step_min = config.transformation_epsilon / 2.0
+    dphi0 = torch.dot(g0, direction)
+    # PCL: a non-descent direction reverses the step
+    reverse = dphi0 > 0
+    direction = torch.where(reverse, -direction, direction)
+    dphi0 = torch.where(reverse, -dphi0, dphi0)
+    zero_grad = dphi0 == 0
+
+    def trial(a):
+        f, g = vg(p + a * direction)
+        return f, torch.dot(g, direction)
+
+    psi_of = lambda a, phi_a: phi_a - phi0 - mu * a * dphi0
+    dpsi_of = lambda dphi_a: dphi_a - mu * dphi0
+
+    # the endpoints start from psi at a = 0: psi(0) = 0, psi'(0) = (1 - mu) phi'(0)
+    z = torch.zeros_like(dphi0)
+    a_l, f_l, g_l = z, z, dpsi_of(dphi0)
+    a_u, f_u, g_u = z, z, dpsi_of(dphi0)
+    a_t = torch.clamp(step_init, step_min, step_max)
+    phi_t, dphi_t = trial(a_t)
+    psi_t, dpsi_t = psi_of(a_t, phi_t), dpsi_of(dphi_t)
+    open_iv = torch.ones((), dtype=torch.bool, device=p.device)
+    iv_conv = torch.zeros_like(open_iv)
+    for _ in range(config.line_search_max_iterations):
+        wolfe = (psi_t <= 0) & (dphi_t <= -nu * dphi0)
+        if bool(iv_conv | wolfe | zero_grad):  # host sync: the trial loop's stop test
+            break
+        # the next trial from psi while the interval is open, else from phi
+        f_sel = torch.where(open_iv, psi_t, phi_t)
+        g_sel = torch.where(open_iv, dpsi_t, dphi_t)
+        a_t = torch.clamp(_trial_value(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_sel, g_sel),
+                          step_min, step_max)
+        phi_t, dphi_t = trial(a_t)
+        psi_t, dpsi_t = psi_of(a_t, phi_t), dpsi_of(dphi_t)
+        # psi -> phi: close the interval and convert the stored endpoint
+        # values. PCL's literal conversion is f += phi_0 - mu * d_phi_0 * a
+        # (the inverse of psi would add + mu * d_phi_0 * a); its sign is
+        # kept, since this mode exists to reproduce PCL, quirks included.
+        close = open_iv & (psi_t <= 0) & (dpsi_t >= 0)
+        f_l = torch.where(close, f_l + phi0 - mu * dphi0 * a_l, f_l)
+        g_l = torch.where(close, g_l + mu * dphi0, g_l)
+        f_u = torch.where(close, f_u + phi0 - mu * dphi0 * a_u, f_u)
+        g_u = torch.where(close, g_u + mu * dphi0, g_u)
+        open_iv = open_iv & ~close
+        a_l, f_l, g_l, a_u, f_u, g_u, iv_conv = _update_interval(
+            a_l, f_l, g_l, a_u, f_u, g_u, a_t,
+            torch.where(open_iv, psi_t, phi_t), torch.where(open_iv, dpsi_t, dphi_t))
+    return torch.where(zero_grad, 0.0, a_t), direction
+
+
 def ndt_align(
     src: Cloud,
     grid: NDTGrid,
@@ -443,11 +621,10 @@ def ndt_align(
     stops when the step falls below ``transformation_epsilon`` or at the
     iteration cap (both report converged, as PCL does). With ``group``,
     every rank passes the whole ``src`` and solves on its shard of the
-    ``max_source_points`` prefix."""
-    if config.pcl_exact_line_search:
-        raise NotImplementedError(
-            "the PCL-exact line search is not ported yet (ROADMAP.md Queue A)"
-        )
+    ``max_source_points`` prefix. ``config.pcl_exact_line_search`` runs
+    ``_more_thuente_exact`` with the neighbourhood refreshed at every
+    trial; ``config.sweep_cells`` selects the compact-cell sweep
+    (``_compact_cells``)."""
     dev, dtype = src.xyz.device, src.xyz.dtype
     guess = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
              else init_guess.to(dtype))
@@ -470,9 +647,15 @@ def ndt_align(
         delta = torch.where(torch.isfinite(delta).all(), delta, -g)
         norm = torch.linalg.vector_norm(delta)
         direction = delta / torch.clamp(norm, min=1e-30)
-        vg = lambda q: fvg(q, mu, ic, mask)
-        step, direction = _more_thuente(vg, p, direction, f0, g, norm,
-                                        config.step_size, config)
+        if config.pcl_exact_line_search:
+            # one neighbourhood query per trial (PCL's radiusSearch per
+            # computeDerivatives call)
+            vg = lambda q: fvg(q, *lookup(q))
+            search = _more_thuente_exact
+        else:
+            vg = lambda q: fvg(q, mu, ic, mask)
+            search = _more_thuente
+        step, direction = search(vg, p, direction, f0, g, norm, config.step_size, config)
         p = p + step * direction
         it += 1
         # host sync: the Newton loop's stop test

@@ -121,22 +121,31 @@ def render_cloud(
         & (py < height)
     )
 
+    col = rgb.flip(-1) if bgr_stored else rgb
+    return rasterize(px, py, ok, -z_eye, col, width, height)
+
+
+def rasterize(px, py, ok, depth, col, width: int, height: int) -> torch.Tensor:
+    """Scatter the points ``ok`` at integer pixels ``(px, py)`` with
+    ``depth`` (smaller is nearer) and colour ``col f32[N,3]`` into a
+    ``u8[height, width, 3]`` image with a z-buffer, each point
+    ``width // 640`` pixels square. At a pixel's minimum depth the lowest
+    point index wins."""
+    dev = depth.device
     hw = width * height
-    depth = -z_eye
     # slot hw is the drop slot for points off the image
     flat = torch.where(ok, py.long() * width + px.long(), torch.full_like(px, hw, dtype=torch.long))
     point_size = max(int(width) // 640, 1)
 
-    big = torch.finfo(xyz.dtype).max
-    col = rgb.flip(-1) if bgr_stored else rgb
-    order = torch.arange(xyz.shape[0], device=dev)
-    none = xyz.shape[0]
+    big = torch.finfo(depth.dtype).max
+    order = torch.arange(depth.shape[0], device=dev)
+    none = depth.shape[0]
 
     masked_depth = torch.where(ok, depth, torch.full_like(depth, big))
     offsets = [dy * width + dx for dy in range(point_size) for dx in range(point_size)]
 
     # pass 1: min depth per pixel over every point-size offset
-    zbuf = torch.full((hw + 1,), big, dtype=xyz.dtype, device=dev)
+    zbuf = torch.full((hw + 1,), big, dtype=depth.dtype, device=dev)
     for off in offsets:
         zbuf = zbuf.scatter_reduce(0, (flat + off).clamp(0, hw), masked_depth, "amin")
     # pass 2: the lowest index among the points at the min depth owns the pixel
@@ -147,7 +156,7 @@ def render_cloud(
         owner = owner.scatter_reduce(0, torch.where(winner, idx, torch.full_like(idx, hw)),
                                      order, "amin")
     img = torch.where((owner < none)[:, None], col[owner.clamp(max=max(none - 1, 0))],
-                      torch.full((), float(BG), dtype=xyz.dtype, device=dev))
+                      torch.full((), float(BG), dtype=depth.dtype, device=dev))
 
     out = img[:hw].reshape(height, width, 3)
     return out.clamp(0, 255).to(torch.uint8)

@@ -418,31 +418,31 @@ def test_fused_and_loop_paths_agree(own_runs):
 
 
 def test_unported_options_raise(frames):
-    """What the port still refuses, naming ROADMAP.md: NDT's PCL-exact
-    line search and its compact-cell sweep (a positive ``sweep_cells``;
-    -1 resolves to the exact path for these neighbourhoods). The robust
-    options it used to refuse here (``carry_cgrad``, the warm start, the
-    rescue, the map anchor, the pose graph, coloured refine clouds) now
-    run: tests/test_torch_robust*.py hold them against the JAX package."""
+    """The options the port used to refuse (with ``NotImplementedError``
+    naming ROADMAP.md) now run through the scheme: NDT's PCL-exact line
+    search and its compact-cell sweep (a positive ``sweep_cells``, and -1
+    at the 27-cell neighbourhood, where it resolves to 512 cells), beside
+    -1 at the 7-cell one (the exact path) and the robust options. Each
+    gives finite totals and a finite global cloud.
+    tests/test_torch_ndt_modes.py (the sweep also against the gather
+    path, per align) and tests/test_torch_robust*.py hold them against
+    the JAX package."""
     base = config_from_dict(dataclasses.asdict(_small_config()))
     r = dataclasses.replace
-    for cfg in (
-        r(base, ndt=r(base.ndt, pcl_exact_line_search=True)),
-        r(base, ndt=r(base.ndt, sweep_cells=64)),
-        r(base, ndt=r(base.ndt, neighborhood=27, sweep_cells=-1)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.NDTEdgeBasedRegistration(config=cfg).registration(frames)
-    for cfg in (
-        r(base, ndt=r(base.ndt, neighborhood=7, sweep_cells=-1)),
-        r(base, edge=r(base.edge, carry_cgrad=True), coarse_warm_start=True,
-          rescue_inlier_frac=0.3,
-          refine=r(base.refine, enabled=True, anchor_to_first=True, anchor_mode="map",
-                   pose_graph=True, color=True)),
+    for name, cfg in (
+        ("exact", r(base, ndt=r(base.ndt, pcl_exact_line_search=True))),
+        ("sweep", r(base, ndt=r(base.ndt, sweep_cells=64))),
+        ("auto sweep 27", r(base, ndt=r(base.ndt, neighborhood=27, sweep_cells=-1))),
+        ("auto 7", r(base, ndt=r(base.ndt, neighborhood=7, sweep_cells=-1))),
+        ("robust", r(base, edge=r(base.edge, carry_cgrad=True), coarse_warm_start=True,
+                     rescue_inlier_frac=0.3,
+                     refine=r(base.refine, enabled=True, anchor_to_first=True,
+                              anchor_mode="map", pose_graph=True, color=True))),
     ):
         scheme = ts.NDTEdgeBasedRegistration(config=cfg)
-        assert torch.isfinite(scheme.registration(frames).xyz).all()
-        assert scheme.total_transforms.shape == (N - 1, 4, 4)
+        assert torch.isfinite(scheme.registration(frames).xyz).all(), name
+        assert scheme.total_transforms.shape == (N - 1, 4, 4), name
+        assert torch.isfinite(scheme.total_transforms).all(), name
 
 
 def test_thetas_must_match_the_frames(frames, thetas):

@@ -33,6 +33,10 @@ Tolerances:
     port takes the JAX package's path. That case is held to the JAX
     package's own same-optimum contract for it (transform 1e-3, score
     rtol 1e-3; see that test's docstring);
+  * NDT's two optional modes (the PCL-exact line search, the compact-cell
+    sweep) on the dry run's case, sharded over a 2-rank group, against
+    the port's single rank: transform ``W.SINGLE_TOL["ndt"]``, score rtol
+    1e-4, iterations within +-1;
   * bit for bit: a world-size-1 group against ``group=None`` (ICP, NDT,
     the fits, the whole chain), the data-sharded batch against the
     unsharded one, and the unsharded batch against one ``_registration_fused``
@@ -59,6 +63,7 @@ COLLECTIVE = (["mesh shapes"]
               + [f"icp {c} {m}" for c in W.ICP_CFG for m in ("points4", "2x2")]
               + [f"batched icp {v} 2x2" for v in ("p2p", "p2l")]
               + [f"ndt {c} {m}" for c in W.NDT_CFG for m in ("points4", "2x2")]
+              + [f"ndt {mode} wall_floor 2x2" for mode in W.NDT_MODES]
               + [f"points chain {m}" for m in ("points4", "2x2", "4x1")]
               + [f"batched 2x2 global={g}" for g in (True, False)]
               + ["batched errors"])
@@ -174,6 +179,18 @@ def test_sharded_ndt(ranks, jax_side, case, mesh):
         np.testing.assert_allclose(got["score"], single["score"], rtol=1e-3)
     else:
         assert max_err(got["transform"], single["transform"]) <= SINGLE_TOL["ndt"]
+
+
+@pytest.mark.parametrize("mode", list(W.NDT_MODES))
+def test_sharded_ndt_modes(ranks, mode):
+    """The PCL-exact line search and the compact-cell sweep with
+    ``group``, sharded over the 2 x 2 mesh's 2-rank points groups,
+    against one rank with ``group=None``."""
+    got = ranks[0][f"ndt {mode} wall_floor 2x2"]
+    single = ranks[3][f"ndt {mode} wall_floor none"]
+    assert max_err(got["transform"], single["transform"]) <= SINGLE_TOL["ndt"]
+    np.testing.assert_allclose(got["score"], single["score"], rtol=1e-4)
+    assert abs(int(got["iterations"]) - int(single["iterations"])) <= 1
 
 
 @pytest.mark.parametrize("job,rank", [

@@ -68,6 +68,9 @@ ICP_CFG = {
 # (__graft_entry__.py::dryrun_multichip on 8 devices)
 NDT_CFG = {"cube": dict(dense_grid_dim=16, transformation_epsilon=1e-4),
            "wall_floor": dict(dense_grid_dim=12, max_iterations=8)}
+# the two optional NDT modes, each on the wall_floor case over the 2 x 2
+# mesh's 2-rank points groups
+NDT_MODES = {"exact": dict(pcl_exact_line_search=True), "sweep": dict(sweep_cells=256)}
 
 
 def _box(n, seed):
@@ -300,6 +303,11 @@ def _jobs(inputs, suite):
         for mesh in ("points4", "2x2"):
             jobs.append((f"ndt {case} {mesh}", lambda src=src, grid=grid, cfg=cfg, mesh=mesh:
                          _np(sharded_ndt_align(src, grid, meshes[mesh], cfg))))
+    for mode in NDT_MODES:
+        cfg, grid = _ndt_grid("wall_floor", inputs, mode)
+        src = cloud_from_numpy(_cloud(ndt_case("wall_floor")[0]))
+        jobs.append((f"ndt {mode} wall_floor 2x2", lambda src=src, grid=grid, cfg=cfg:
+                     _np(sharded_ndt_align(src, grid, meshes["2x2"], cfg))))
     for mesh in ("points4", "2x2", "4x1"):
         jobs.append((f"points chain {mesh}", lambda mesh=mesh: _np(points_sharded_registration(
             chain["seq0"], chain["guesses"][0], robust, meshes[mesh], include_global=False))))
@@ -382,6 +390,11 @@ def _solo_jobs(rank, inputs, one, suite):
             for name, group in (("none", None), ("one", one)):
                 jobs.append((f"ndt {case} {name}", lambda src=src, grid=grid, cfg=cfg, g=group:
                              _np(ndt_align(src, grid, cfg, group=g))))
+        for mode in NDT_MODES:
+            cfg, grid = _ndt_grid("wall_floor", inputs, mode)
+            src = cloud_from_numpy(_cloud(ndt_case("wall_floor")[0]))
+            jobs.append((f"ndt {mode} wall_floor none", lambda src=src, grid=grid, cfg=cfg:
+                         _np(ndt_align(src, grid, cfg))))
         rng = np.random.default_rng(5)
         a, b, nrm = (t(rng.normal(size=(200, 3)).astype(np.float32)) for _ in range(3))
         w = t(rng.random(200).astype(np.float32))
@@ -424,12 +437,13 @@ def _with_jax_edges(inputs, chain, fn):
         chainscan.extract_edge_features_batch = real
 
 
-def _ndt_grid(case, inputs):
-    """(the port's NDTConfig, the JAX package's grid of the case's target)."""
+def _ndt_grid(case, inputs, mode=None):
+    """(the port's NDTConfig, with the NDT_MODES entry ``mode`` if given;
+    the JAX package's grid of the case's target)."""
     from rspc_tpu_torch.config import NDTConfig
     from rspc_tpu_torch.interop import config_from_dict, ndt_grid_from_numpy
 
-    cfg = config_from_dict(NDT_CFG[case], NDTConfig)
+    cfg = config_from_dict({**NDT_CFG[case], **NDT_MODES.get(mode, {})}, NDTConfig)
     return cfg, ndt_grid_from_numpy(inputs[f"ndt/{case}/moments"],
                                     inputs[f"ndt/{case}/origin"], cfg)
 

@@ -49,6 +49,15 @@ package on the CPU and the port on ``--device``, on the JAX package's
 frames, and prints each package's converged count and max |T - T_gt|
 per pair, and max |T_jax - T_port|.
 
+With ``ndt_modes``, it runs the north star (``NDTEdgeBasedRegistration(
+rads=-0.08, config=north_star_config())``, 10 frames at 640x480 unless
+``--size=WxH``) in each package with NDT's line search frozen (the
+default), PCL-exact (``pcl_exact_line_search``) and with the compact-cell
+sweep (``sweep_cells=512``), the JAX package on the CPU and the port on
+``--device``, each on its own renders of the same scene, and prints
+each run's converged count, max |T - T_gt| and wall, each mode's max
+|T - T_frozen| within its package, and max |T_jax - T_port| per mode.
+
 Not a pytest module (the JAX package takes minutes per scheme at this
 size on the CPU). Run from the repository root:
 
@@ -59,6 +68,7 @@ size on the CPU). Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py phase1 [--size=WxH] [--device=cuda] [scene ...]
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py split [--size=WxH] [--device=cuda] scene
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py serving [--size=WxH] [--device=cuda] [yaw ...]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py ndt_modes [--size=WxH] [--device=cuda]
 """
 
 import dataclasses
@@ -430,6 +440,52 @@ def serving(args) -> int:
     return 0
 
 
+def ndt_modes(args) -> int:
+    """``ndt_modes [--size=WxH] [--device=cuda]``."""
+    from rspc_tpu.presets import north_star_config as j_north_star
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence as TSequence
+    from rspc_tpu_torch.ops.deproject import Intrinsics as TIntrinsics
+    from rspc_tpu_torch.presets import north_star_config as t_north_star
+
+    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    width, height = (int(x) for x in opts.get("size", "640x480").split("x"))
+    device = opts.get("device", "cpu")
+    seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=YAW_STEP,
+                            intr=Intrinsics.simple(width, height))
+    gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+    sides = {
+        "jax": (js.NDTEdgeBasedRegistration, j_north_star(), seq.clouds()),
+        f"port ({device})": (ts.NDTEdgeBasedRegistration, t_north_star(), TSequence(
+            n_frames=N_FRAMES, yaw_step=YAW_STEP,
+            intr=TIntrinsics.simple(width, height)).clouds(device=device)),
+    }
+    modes = {"frozen": {}, "exact": {"pcl_exact_line_search": True},
+             "sweep": {"sweep_cells": 512}}
+    totals = {}
+    for side, (cls, base, clouds) in sides.items():
+        for mode, kw in modes.items():
+            cfg = dataclasses.replace(base, ndt=dataclasses.replace(base.ndt, **kw))
+            t0 = time.perf_counter()
+            scheme = cls(rads=YAW_STEP, config=cfg)
+            scheme.registration(clouds)
+            t = scheme.total_transforms
+            totals[side, mode] = np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+            conv = [bool(f.converged) for _, f in scheme.results]
+            print(f"ndt_modes {side} {mode} {width}x{height} ({time.perf_counter() - t0:.1f} s):"
+                  f" converged {sum(conv)}/{len(conv)}; max |T - T_gt| "
+                  f"{pair_max(totals[side, mode], gt).max():.4e}; per pair "
+                  f"{_fmt(pair_max(totals[side, mode], gt))}", flush=True)
+        for mode in ("exact", "sweep"):
+            print(f"ndt_modes {side}: {mode} against frozen, max |T - T_frozen| "
+                  f"{np.abs(totals[side, mode] - totals[side, 'frozen']).max():.4e}", flush=True)
+    jax_side, port_side = sides
+    for mode in modes:
+        print(f"ndt_modes {mode}: max |T_jax - T_port| "
+              f"{np.abs(totals[jax_side, mode] - totals[port_side, mode]).max():.4e}",
+              flush=True)
+    return 0
+
+
 def pair_max(a, b):
     return np.abs(np.asarray(a) - np.asarray(b)).reshape(N_FRAMES - 1, -1).max(1)
 
@@ -485,6 +541,8 @@ if __name__ == "__main__":
         sys.exit(phase1(sys.argv[2:]))
     if sys.argv[1:2] == ["serving"]:
         sys.exit(serving(sys.argv[2:]))
+    if sys.argv[1:2] == ["ndt_modes"]:
+        sys.exit(ndt_modes(sys.argv[2:]))
     if sys.argv[1:2] == ["split"]:
         sys.exit(split(sys.argv[2:]))
     sys.exit(main(sys.argv[1:] or list(SCHEMES)))
