@@ -151,7 +151,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      the exact run's totals at 640x480 against the port's CPU render (at
      most 0.1% of the pixels apart); ``python -m
      rspc_tpu_torch.examples.pcd_visualization`` on a PCD of the voxel
-     cloud (rc 0, the PNG read back). Each wall is printed.
+     cloud (rc 0, the PNG read back). Each wall is printed;
+ 18. ``feature_quality``: the port's ``tools/feature_quality.py`` on the
+     card (its synthetic frame 0 at 320x240, the four warps of
+     ``homographies`` through its ``warp_perspective``): every warp at
+     ratios 0.3 and 0.7 with the odometry's options, ``first_octave=0``
+     on ``shift`` and ``rotate8`` and ``scale_gate=1.5`` on
+     ``scale1.12`` at 0.3. Each row twice on the card (features and
+     matches equal bit for bit) and once on the CPU (repeatability and
+     inlier rate within 0.02, matches within 3 of the card's; both rows
+     printed); at ratio 0.3 the default rows meet the floors of
+     tests/test_feature_quality.py; ``python -m
+     rspc_tpu_torch.tools.feature_quality`` as a process (rc 0, its
+     rows printed). No kernel launches.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -244,6 +256,18 @@ NDT_PAIR_TOL = 1e-5  # one pair, auto sweep vs gather (the JAX test's 5e-6, f32 
 UNDISTORT_TOL = 2e-4  # tests/test_image_ops.py's round-trip bound
 NORMAL_GAP = 1e-5  # m^2: below this eigenvalue gap a radius normal is held by NORMAL_RQ_TOL
 NORMAL_RQ_TOL = 1e-7  # m^2: n^T C n above the smallest eigenvalue (the f32 moment error)
+# the feature-quality phase: tests/test_feature_quality.py's floors at
+# ratio 0.3 (repeatability, matches, inlier rate; perspective has no
+# repeatability floor), the options the odometry does not set, and how far
+# a card row may lie from the port's CPU row of the same frames (the CPU
+# tests' allowance against the JAX package,
+# tests/test_torch_feature_quality.py)
+FQ_RATIOS = (0.3, 0.7)
+FQ_FLOORS = {"shift": (0.9, 100, 0.95), "rotate8": (0.65, 30, 0.9),
+             "scale1.12": (0.7, 35, 0.85), "perspective": (None, 30, 0.9)}
+FQ_OPTIONS = (("shift", {"first_octave": 0}), ("rotate8", {"first_octave": 0}),
+              ("scale1.12", {"scale_gate": 1.5}))
+FQ_REP_TOL, FQ_MATCH_TOL, FQ_INLIER_TOL = 0.02, 3, 0.02
 
 
 def log(*a):
@@ -2011,6 +2035,86 @@ def phase_input_side(dev, card, seq, clouds, totals):
     return launches
 
 
+def phase_feature_quality(dev, card):
+    """The port's feature-quality harness (``rspc_tpu_torch/tools/
+    feature_quality.py``) on the card: frame 0 of its synthetic pair
+    rendered on the card, the four warps of ``homographies`` through
+    ``warp_perspective``, each at ratios 0.3 and 0.7 with the default
+    options, and ``FQ_OPTIONS``' rows at ratio 0.3. Every row runs twice
+    on the card (the features and matches equal bit for bit) and once on
+    the CPU (the row within ``FQ_*_TOL``); the default rows at ratio 0.3
+    meet ``FQ_FLOORS``; then ``python -m
+    rspc_tpu_torch.tools.feature_quality`` as a process. No kernel runs
+    here: the JAX code it ports reaches no ``pl.pallas_call``."""
+    import os
+
+    import torch
+
+    from rspc_tpu_torch import cuda_build
+    from rspc_tpu_torch.tools import feature_quality as fq
+
+    cuda_build.reset_counts()
+    ga = fq.test_images(device=dev)[0]
+    hs = fq.homographies(ga.shape[1], ga.shape[0])
+    warped = {name: fq.warp_perspective(ga, h) for name, h in hs.items()}
+    fq.match_pair(ga, warped["shift"], device=dev)  # warm-up
+    runs = [(name, r, {}) for name in hs for r in FQ_RATIOS] + [
+        (name, 0.3, opts) for name, opts in FQ_OPTIONS]
+    walls = {"card": 0.0, "cpu": 0.0}
+    failed = []
+    for name, ratio, opts in runs:
+        got = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(fq.match_pair(ga, warped[name], ratio, device=dev, **opts))
+            torch.cuda.synchronize()
+            walls["card"] += time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(*got))
+        row = fq._stats(*(t.cpu().numpy() for t in got[0]), hs[name], 3.0, ga.shape)
+        t0 = time.perf_counter()
+        cpu = fq.measure_ours(ga, warped[name], hs[name], ratio=ratio, device="cpu", **opts)
+        walls["cpu"] += time.perf_counter() - t0
+        what = f"{name} ratio {ratio}" + "".join(f" {k}={v}" for k, v in opts.items())
+        fmt = lambda r: (f"kp {r['kp_a']}/{r['kp_b']}, repeatability {r['repeatability']:.4f}, "
+                         f"matches {r['n_matches']}, inlier rate {r['inlier_rate']:.4f}")
+        log(f"feature_quality {what}: card {fmt(row)}; cpu {fmt(cpu)}; two card runs "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            failed.append(f"{what}: two card runs differ")
+        for key, tol in (("repeatability", FQ_REP_TOL), ("n_matches", FQ_MATCH_TOL),
+                         ("inlier_rate", FQ_INLIER_TOL)):
+            a, b = row[key], cpu[key]
+            if not (abs(a - b) <= tol or (np.isnan(a) and np.isnan(b))):
+                failed.append(f"{what}: {key} {a} on the card, {b} on the CPU (allowance {tol})")
+        if ratio == 0.3 and not opts:
+            rep, matches, inliers = FQ_FLOORS[name]
+            if ((rep is not None and row["repeatability"] < rep) or row["n_matches"] < matches
+                    or not row["inlier_rate"] >= inliers):
+                failed.append(f"{what}: {row} under the floors {FQ_FLOORS[name]}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rspc_tpu_torch.tools.feature_quality"],
+                          env=env, capture_output=True, text=True, timeout=300)
+    walls["python -m rspc_tpu_torch.tools.feature_quality (process)"] = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log("feature_quality python -m rspc_tpu_torch.tools.feature_quality: rc "
+        f"{proc.returncode}\n" + proc.stdout.rstrip())
+    if proc.returncode != 0 or len(lines) != 1 + len(hs) * len(FQ_RATIOS):
+        failed.append(f"python -m rspc_tpu_torch.tools.feature_quality: {proc.stderr[-2000:]}")
+    launches, plain = dict(cuda_build.LAUNCHES), dict(cuda_build.PLAIN_ON_CUDA)
+    if any(launches.values()) or any(plain.values()):
+        failed.append(f"kernel launches {launches}, plain versions on CUDA tensors {plain}")
+    log(f"feature_quality walls on {card} (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+    if failed:
+        raise AssertionError("feature_quality: " + "; ".join(failed))
+    return launches
+
+
 def _box(n: int, seed: int, dev):
     """``n`` points on the faces of a unit box 2 m ahead."""
     import torch
@@ -2296,6 +2400,7 @@ def main() -> int:
     per_path["ndt_modes"], exact_totals = timed("ndt_modes", phase_ndt_modes, dev, seq, clouds)
     per_path["input_side"] = timed("input_side", phase_input_side, dev, card, seq, clouds,
                                    exact_totals)
+    per_path["feature_quality"] = timed("feature_quality", phase_feature_quality, dev, card)
     log(f"phase walls (s): {walls}")
     log(f"launches per path (each from counts set to 0): {per_path}")
     nn["max_abs_err"] = max(nn["max_abs_err"], *(v["err"] for v in robust_nn.values()))

@@ -9,7 +9,8 @@ against), rebuilt on PyTorch for one NVIDIA H100:
   interop.py        -- numpy <-> port conversions the parity tests use
   ops/              -- transforms, image ops, Canny (kernel B3), normals,
                        edges, voxel grid, NN sweep (kernel B1), rigid fits,
-                       keypoints and RANSAC, the filters
+                       keypoints (``first_octave``, ``sigma=None``, the
+                       scale gate) and RANSAC, the filters
   registration/     -- ICP, NDT, anchor refinement, the fused chain,
                        ``NDTEdgeBasedRegistration``
   parallel/         -- serving and scale-out on ``torch.distributed``:
@@ -21,6 +22,8 @@ against), rebuilt on PyTorch for one NVIDIA H100:
   viz/              -- the headless renderer, PNG, the terminal viewer,
                        the world-frame trajectory renderer, overlays
   examples/         -- the standalone viewers (``python -m``)
+  tools/            -- ``python -m rspc_tpu_torch.tools.feature_quality``:
+                       the odometry's features on known warps
   utils/            -- logging, stage timers, profiler traces
   cli.py            -- the reference's ``rs-pcl`` command line
   cuda_build.py     -- builds ``csrc/*.cu`` with nvcc on first use and

@@ -1,19 +1,23 @@
-"""ctypes binding to the repository's native I/O helpers
-(``native/librspc_native.so``), the port's own copy of
-``rspc_tpu/io/native.py``: the LZF codec, the threaded dataset loader
-and the CPU kd-tree.
+"""ctypes binding to the repository's native I/O helpers (built from
+``native/*.cpp``), the port's own copy of ``rspc_tpu/io/native.py``: the
+LZF codec, the threaded dataset loader and the CPU kd-tree.
 
-The library is built from ``native/*.cpp`` with ``make -C native`` the
-first time it is needed (into a temporary name, then renamed, so that
-concurrent first uses never load a half-written file). Every entry point
-returns None when the library is missing or does not build, and the
-callers then take their pure-Python versions, so the port never depends
-on a compiler. These are host codecs, not device kernels.
+The port builds its own copy of the library, ``_build/librspc_native.so``
+beside the CUDA kernels' builds, the first time it is needed, and never
+loads the JAX package's ``native/librspc_native.so``. The build runs
+under an exclusive lock on ``_build/librspc_native.lock``: ``make -C
+native`` links into a per-process temporary name, which is renamed into
+place (:func:`build`), so concurrent first uses (pytest workers, ranks) wait for one
+build and never load a half-written file. Every entry point returns None
+when the library does not build (no compiler), and the callers then take
+their pure-Python versions, so the port never depends on a compiler.
+These are host codecs, not device kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -23,27 +27,33 @@ import numpy as np
 _NATIVE_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "native")
 )
-_LIB_NAME = "librspc_native.so"
-LIB_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
+_BUILD_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "_build"))
+LIB_PATH = os.path.join(_BUILD_DIR, "librspc_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> None:
-    """``make -C native`` into a per-process name, renamed into place."""
-    tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(os.path.join(_NATIVE_DIR, tmp), LIB_PATH)
-    except (OSError, subprocess.SubprocessError):
-        pass
-    finally:
-        if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
-            os.remove(os.path.join(_NATIVE_DIR, tmp))
+def build(lib_path: str = LIB_PATH) -> bool:
+    """Build ``native/``'s library into ``lib_path`` unless it is there,
+    under an exclusive lock on ``_build/librspc_native.lock``: ``make
+    TARGET=`` a per-process temporary name beside it, then ``os.replace``.
+    True when ``lib_path`` exists afterwards."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{os.path.splitext(lib_path)[0]}.{os.getpid()}.tmp.so"
+    with open(os.path.join(_BUILD_DIR, "librspc_native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(lib_path):
+                subprocess.run(["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
+                               check=True, capture_output=True, timeout=120)
+                os.replace(tmp, lib_path)
+        except (OSError, subprocess.SubprocessError):
+            pass
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return os.path.exists(lib_path)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -51,11 +61,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(LIB_PATH) and os.path.exists(
-        os.path.join(_NATIVE_DIR, "Makefile")
-    ):
-        _build()
-    if not os.path.exists(LIB_PATH):
+    if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")) or not build():
         return None
     try:
         lib = ctypes.CDLL(LIB_PATH)

@@ -5,12 +5,14 @@ The reference's OpenCV SIFT (src/capture_opencv.hpp:30-48) and FLANN
 2-NN matching with Lowe ratio 0.3, feeding a visual odometry whose output
 the reference's caller discards (main.cpp:44-53). The recipe is the JAX
 package's, whose docstrings give the measurements behind each choice:
-a difference-of-Gaussian pyramid over a 2x-upsampled base octave and
-``num_octaves`` more, 3x3x3 extrema with contrast and edge tests,
-sub-pixel and sub-scale refinement, fixed-capacity top-k selection;
-128-d descriptors on a rotated, scale-matched 16x16 grid with level-lerped
-bilinear gradients and trilinear soft binning; one matrix product and a
-2-NN ratio test with an ambiguity guard and an optional mutual check.
+a difference-of-Gaussian pyramid over a 2x-upsampled base octave
+(``first_octave=-1``; 0 starts at the image itself) and ``num_octaves``
+more, 3x3x3 extrema with contrast and edge tests, sub-pixel and
+sub-scale refinement, fixed-capacity top-k selection; 128-d descriptors
+on a rotated, scale-matched 16x16 grid with level-lerped bilinear
+gradients and trilinear soft binning; one matrix product and a 2-NN
+ratio test with an ambiguity guard, an optional scale-consistency gate
+and an optional mutual check.
 
 Keypoints are batched over the leading axis where the JAX package maps
 one keypoint at a time. Three rules keep the results the same on the CPU
@@ -186,25 +188,34 @@ def detect_keypoints(
     contrast_threshold: float = 0.02,
     edge_ratio: float = 10.0,
     num_octaves: int = 3,
+    first_octave: int = -1,
 ):
-    """DoG extrema over octaves ``-1 .. num_octaves-1`` of a grayscale
-    ``[H, W]`` image (0..255): octave -1 is OpenCV's 2x-upsampled base.
+    """DoG extrema over octaves ``first_octave .. num_octaves-1`` of a
+    grayscale ``[H, W]`` image (0..255): ``first_octave`` -1 (the
+    default) starts at OpenCV's 2x-upsampled base, 0 at the image itself
+    (taken as blur-free).
 
     Returns (xy f32[K,2] base-image pixel coords, score f32[K], valid
     bool[K], sigma f32[K] in base-image units), K = ``max_keypoints``:
     each octave offers its top K by |DoG| and one top-k merges them.
     Octaves after the first whose image would fall below 48 px on a side
     are skipped."""
+    if first_octave not in (-1, 0):
+        raise ValueError(f"first_octave must be -1 or 0, not {first_octave}")
     img = gray.to(torch.float32) / 255.0
     per = []
-    base = _upsample2(img)
-    for o in range(-1, num_octaves):
+    base = _upsample2(img) if first_octave < 0 else img
+    for o in range(first_octave, num_octaves):
         h, w = base.shape
-        if o > -1 and min(h, w) < 48:
+        if o > first_octave and min(h, w) < 48:
             break
+        if o > first_octave:
+            base_blur = 1.6
+        else:
+            base_blur = 1.0 if first_octave < 0 else 0.0
         xy, sc, valid, sig, next_base = _detect_octave(
             base, max_keypoints, num_scales, contrast_threshold, edge_ratio,
-            base_blur=1.0 if o == -1 else 1.6,
+            base_blur=base_blur,
         )
         f = float(2.0**o)
         per.append((xy * f, sc, valid, sig * f))
@@ -268,45 +279,52 @@ def compute_descriptors(
     gray: torch.Tensor,
     xy: torch.Tensor,
     valid: torch.Tensor,
-    sigma: torch.Tensor,
+    sigma: torch.Tensor | None = None,
     num_scales: int = 3,
     num_octaves: int = 3,
-    num_orientations: int = 3,
+    first_octave: int = -1,
+    num_orientations: int = 1,
 ):
     """128-d SIFT-layout descriptors (4x4 spatial x 8 orientation bins) of
-    the keypoints ``xy f32[K,2]`` (``sigma`` from ``detect_keypoints``).
+    the keypoints ``xy f32[K,2]`` (``sigma`` from ``detect_keypoints``;
+    None puts every keypoint at 1.6).
 
     Per keypoint: a 36-bin Gaussian-weighted orientation histogram,
     circularly smoothed twice, whose peak rotates the 16x16 sample grid;
     the grid is scaled by sigma/1.6 and samples gradients lerped between
-    the two Gaussian levels that bracket the keypoint's scale (the
-    2x-upsampled stack for sigma < 1.6); contributions are soft-binned
+    the two Gaussian levels that bracket the keypoint's scale (with
+    ``first_octave`` -1, the 2x-upsampled stack for sigma < 1.6; with 0
+    the levels start at sigma 1.6); contributions are soft-binned
     trilinearly under a Gaussian window; L2-normalise, clamp at 0.2,
     renormalise.
 
-    Besides the dominant orientation, ``num_orientations`` = N emits
+    Besides the dominant orientation, ``num_orientations`` = N > 1 emits
     descriptors at up to N-1 further histogram peaks (each at a circular
     distance of at least 3 bins from those chosen before) that reach 0.8x
-    the dominant one. Returns ``(desc f32[N*K,128], valid bool[N*K])``,
-    rows N*i .. N*i+N-1 belonging to keypoint i (the JAX package's
-    default is N = 1 and a bare ``desc``; the odometry uses N = 3)."""
+    the dominant one, and returns ``(desc f32[N*K,128], valid
+    bool[N*K])``, rows N*i .. N*i+N-1 belonging to keypoint i (the
+    odometry uses N = 3). With N = 1 (the default) it returns ``desc
+    f32[K,128]`` alone, zero for an invalid keypoint."""
     dev = gray.device
     img = gray.to(torch.float32) / 255.0
     kk = 2.0 ** (1.0 / num_scales)
     log_kk = float(np.log(np.float32(kk)))
-    lo = num_scales  # levels below sigma 1.6, from the upsampled base octave
+    lo = num_scales if first_octave < 0 else 0  # levels below sigma 1.6
     n_lvl = num_scales * num_octaves + 3 + lo
     gs = [_grad(_blur(img, 1.6 * (kk ** (i - lo)))) for i in range(n_lvl)]
     gx_st = torch.stack([g[0] for g in gs])  # [L,H,W]
     gy_st = torch.stack([g[1] for g in gs])
     # sub-1.6-sigma keypoints (the upsampled base octave's) sample a second,
     # short stack on the 2x-upsampled image
-    n_ups = lo + 2
-    ups = _upsample2(img)
-    gs_u = [_grad(_blur(ups, 2.0 * 1.6 * (kk ** (i - lo)))) for i in range(n_ups)]
-    gxu_st = torch.stack([g[0] for g in gs_u])
-    gyu_st = torch.stack([g[1] for g in gs_u])
+    n_ups = lo + 2 if first_octave < 0 else 0
+    if n_ups:
+        ups = _upsample2(img)
+        gs_u = [_grad(_blur(ups, 2.0 * 1.6 * (kk ** (i - lo)))) for i in range(n_ups)]
+        gxu_st = torch.stack([g[0] for g in gs_u])
+        gyu_st = torch.stack([g[1] for g in gs_u])
     k = xy.shape[0]
+    if sigma is None:
+        sigma = torch.full((k,), 1.6, dtype=torch.float32, device=dev)
 
     offs = torch.arange(-8, 8, dtype=torch.float32, device=dev) + 0.5  # 16 samples
     ov, ou = torch.meshgrid(offs, offs, indexing="ij")  # [16,16] dv, du
@@ -318,6 +336,8 @@ def compute_descriptors(
         lf = lfrac[:, None, None]
         gxf = (1.0 - lf) * _bilinear(gx_st, lvl, xs, ys) + lf * _bilinear(gx_st, lvl1, xs, ys)
         gyf = (1.0 - lf) * _bilinear(gy_st, lvl, xs, ys) + lf * _bilinear(gy_st, lvl1, xs, ys)
+        if not n_ups:
+            return gxf, gyf
         lvu = torch.clamp(lvl, max=n_ups - 1)
         lvu1 = torch.clamp(lvl1, max=n_ups - 1)
         gxu = (1.0 - lf) * _bilinear(gxu_st, lvu, 2 * xs, 2 * ys) \
@@ -397,7 +417,24 @@ def compute_descriptors(
     desc = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=1, keepdim=True), min=1e-12)
 
     valid_n = torch.stack([valid] + [valid & ok for ok in oks], 1).reshape(n * k)
-    return torch.where(valid_n[:, None], desc, 0.0), valid_n
+    desc = torch.where(valid_n[:, None], desc, 0.0)
+    return desc if n == 1 else (desc, valid_n)
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian`` of a 1-D tensor: the middle of its non-NaN values,
+    the two middle ones weighted 0.5 each for an even count
+    (``torch.nanmedian`` takes the lower of them); NaN when none. The
+    arithmetic is that of ``jnp.quantile``'s linear method, on the
+    device, with no host sync."""
+    s = torch.sort(x).values  # NaN sorts last
+    n = (~torch.isnan(x)).sum().to(x.dtype)
+    q = 0.5 * (n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    w_high = q - low
+    # q <= n - 1; with no value q is -0.5 and s[0] the NaN answer
+    lo_i, hi_i = torch.clamp(low, min=0).long(), torch.clamp(high, min=0).long()
+    return s[lo_i] * (1 - w_high) + s[hi_i] * w_high
 
 
 def match_descriptors(
@@ -406,12 +443,23 @@ def match_descriptors(
     desc_b: torch.Tensor,
     valid_b: torch.Tensor,
     ratio: float = 0.3,
+    sigma_a: torch.Tensor | None = None,
+    sigma_b: torch.Tensor | None = None,
+    scale_gate: float = 0.0,
     mutual_group: int = 0,
 ):
     """2-NN matching with Lowe's ratio test (reference ratio 0.3,
     capture_opencv.hpp:66): for each A row the two nearest valid B rows
     by L2, kept when d1 < ratio * d2 and the gap sqrt(d2) - sqrt(d1)
     exceeds 0.01 (exact duplicates otherwise win on float noise).
+
+    Scale-consistency gate, on where ``scale_gate`` > 1 and both
+    ``sigma_a`` and ``sigma_b`` are given (per descriptor row, expanded
+    like the rows): the matches that pass the ratio test vote one global
+    scale, the median of their log(sigma_b / sigma_a) (the two frames of a
+    rigid scene share one camera motion); a match whose own log ratio lies
+    farther than log(``scale_gate``) from it is dropped. With no
+    survivor the gate is off.
 
     ``mutual_group`` = G > 0: keep a match only when B's chosen row's
     nearest valid A row belongs to the same A keypoint (rows grouped by
@@ -433,6 +481,13 @@ def match_descriptors(
         & (r1 < ratio * r2)
         & (r2 - r1 > 0.01)
     )
+    if scale_gate > 1.0 and sigma_a is not None and sigma_b is not None:
+        lr = torch.log(torch.clamp(sigma_b[idx[:, 0]], min=1e-6)
+                       / torch.clamp(sigma_a, min=1e-6))
+        med = _nanmedian(torch.where(good, lr, math.nan))
+        no_hyp = torch.isnan(med)
+        med = torch.where(no_hyp, 0.0, med)
+        good = good & (no_hyp | (torch.abs(lr - med) <= float(np.log(scale_gate))))
     if mutual_group:
         d2_back = torch.where(valid_a[:, None], 2.0 - 2.0 * sim, math.inf)
         best_a = _first_argmax(-d2_back, 0)  # nearest A row per B row

@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import rspc_tpu.config as jcfg
 import rspc_tpu_torch.config as tcfg
@@ -20,6 +21,18 @@ from rspc_tpu.presets import robust_config as j_robust
 from rspc_tpu_torch.interop import config_from_dict
 from rspc_tpu_torch.presets import north_star_config as t_north_star
 from rspc_tpu_torch.presets import robust_config as t_robust
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CLASSES = [

@@ -64,6 +64,19 @@ from rspc_tpu_torch.io import pcd as tpcd
 from rspc_tpu_torch.ops import edges as tedges
 from rspc_tpu_torch.registration import chainscan as tchain
 from rspc_tpu_torch.registration import schemes as ts
+from torch_native import jax_native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 jcanny = importlib.import_module("rspc_tpu.ops.canny")
 jimage = importlib.import_module("rspc_tpu.ops.image")
@@ -417,34 +430,6 @@ def test_fused_and_loop_paths_agree(own_runs):
     assert a["count"] == b["count"]
 
 
-def test_unported_options_raise(frames):
-    """The options the port used to refuse (with ``NotImplementedError``
-    naming ROADMAP.md) now run through the scheme: NDT's PCL-exact line
-    search and its compact-cell sweep (a positive ``sweep_cells``, and -1
-    at the 27-cell neighbourhood, where it resolves to 512 cells), beside
-    -1 at the 7-cell one (the exact path) and the robust options. Each
-    gives finite totals and a finite global cloud.
-    tests/test_torch_ndt_modes.py (the sweep also against the gather
-    path, per align) and tests/test_torch_robust*.py hold them against
-    the JAX package."""
-    base = config_from_dict(dataclasses.asdict(_small_config()))
-    r = dataclasses.replace
-    for name, cfg in (
-        ("exact", r(base, ndt=r(base.ndt, pcl_exact_line_search=True))),
-        ("sweep", r(base, ndt=r(base.ndt, sweep_cells=64))),
-        ("auto sweep 27", r(base, ndt=r(base.ndt, neighborhood=27, sweep_cells=-1))),
-        ("auto 7", r(base, ndt=r(base.ndt, neighborhood=7, sweep_cells=-1))),
-        ("robust", r(base, edge=r(base.edge, carry_cgrad=True), coarse_warm_start=True,
-                     rescue_inlier_frac=0.3,
-                     refine=r(base.refine, enabled=True, anchor_to_first=True,
-                              anchor_mode="map", pose_graph=True, color=True))),
-    ):
-        scheme = ts.NDTEdgeBasedRegistration(config=cfg)
-        assert torch.isfinite(scheme.registration(frames).xyz).all(), name
-        assert scheme.total_transforms.shape == (N - 1, 4, 4), name
-        assert torch.isfinite(scheme.total_transforms).all(), name
-
-
 def test_thetas_must_match_the_frames(frames, thetas):
     scheme = ts.NDTEdgeBasedRegistration(thetas=thetas[:2], config=config_from_dict(
         dataclasses.asdict(_small_config())))
@@ -478,6 +463,7 @@ def _pcd_clouds():
 def test_save_pcd_bytes_match_jax(tmp_path, monkeypatch, codec, mode, keep_invalid):
     if codec == "native":
         # both packages compress through the same native codec where it builds
+        jax_native()
         assert tnative.available() == jnative.available()
     else:
         # both packages' Python compressors

@@ -15,7 +15,8 @@ equal (f32 moment sums in another order); undistorted coordinates atol
 (the JAX test's bound); deprojected points atol 1e-6; ``compose`` atol
 1e-6 (four-term f32 dot products, rounded in another order);
 ``concatenate`` exact; the kd-tree's squared distances and indices exact
-(the same native library).
+(two builds of the same native sources; tests/torch_native.py loads the
+JAX package's).
 """
 
 import jax.numpy as jnp
@@ -25,7 +26,6 @@ import torch
 
 from rspc_tpu.cloud import Cloud as JCloud
 from rspc_tpu.cloud import concatenate as j_concatenate
-from rspc_tpu.io import native as j_native
 from rspc_tpu.ops import deproject as jd
 from rspc_tpu.ops.filters import passthrough as j_pass
 from rspc_tpu.ops.filters import statistical_outlier_removal as j_sor
@@ -38,6 +38,8 @@ from rspc_tpu_torch.ops import deproject as td
 from rspc_tpu_torch.ops.filters import passthrough, statistical_outlier_removal
 from rspc_tpu_torch.ops.normals import estimate_normals_radius
 from rspc_tpu_torch.ops.transform import compose
+from torch_native import jax_native
+
 
 t = lambda a: torch.from_numpy(np.array(a))
 
@@ -195,7 +197,7 @@ def test_kdtree_matches_jax():
     pts = rng.uniform(-1, 1, (2000, 3)).astype(np.float32)
     queries = rng.uniform(-1.2, 1.2, (300, 3)).astype(np.float32)
     d2, idx = native.KDTree(pts).query(queries)
-    w_d2, w_idx = j_native.KDTree(pts).query(queries)
+    w_d2, w_idx = jax_native().KDTree(pts).query(queries)
     np.testing.assert_array_equal(idx, w_idx)
     np.testing.assert_array_equal(d2, w_d2)
     brute = ((queries[:, None] - pts[None]) ** 2).sum(-1)

@@ -48,6 +48,18 @@ from rspc_tpu_torch.ops.edges import _frame_inputs, extract_edge_features
 from rspc_tpu_torch.ops.hysteresis_check import hysteresis_cases, hysteresis_truth
 from rspc_tpu_torch.ops.normals import estimate_normals
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 jcanny = importlib.import_module("rspc_tpu.ops.canny")
 jimage = importlib.import_module("rspc_tpu.ops.image")
 

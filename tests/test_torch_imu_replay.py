@@ -39,6 +39,18 @@ from rspc_tpu_torch.ops import transform as ttf
 from rspc_tpu_torch.ops.deproject import Intrinsics
 from rspc_tpu_torch.registration.pairsteps import _imu_guesses
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 W, H, N, YAW = 80, 60, 3, -0.07
 ATOL = 1e-6
 

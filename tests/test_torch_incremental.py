@@ -21,6 +21,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from rspc_tpu.capture.synthetic import SyntheticSequence as JSequence
 from rspc_tpu.config import PipelineConfig as JPipelineConfig
@@ -28,6 +29,18 @@ from rspc_tpu.ops.deproject import Intrinsics as JIntrinsics
 from rspc_tpu.registration.schemes import IncrementalICP as JIncrementalICP
 from rspc_tpu_torch.interop import cloud_from_numpy, config_from_dict
 from rspc_tpu_torch.registration.schemes import IncrementalICP
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 N, YAW, W, H = 3, -0.08, 160, 120
 VOXEL_CAP = 2048

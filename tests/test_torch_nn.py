@@ -28,6 +28,17 @@ from rspc_tpu_torch.ops.nn import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 

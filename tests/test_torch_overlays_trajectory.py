@@ -25,6 +25,17 @@ from rspc_tpu_torch.viz import overlays as to
 from rspc_tpu_torch.viz import trajectory as tt
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_render_imu_axes_matches_jax(seed):
     rng = np.random.default_rng(seed)

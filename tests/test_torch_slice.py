@@ -40,6 +40,18 @@ from rspc_tpu_torch.registration.schemes import (
     NDTEdgeBasedRegistration,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, YAW, W, H = 3, -0.08, 160, 120
 GT_BOUND = 2e-2
 TOTALS_TOL = 5e-4

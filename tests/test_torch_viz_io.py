@@ -31,6 +31,7 @@ from rspc_tpu_torch.io import dataset, native, pcd
 from rspc_tpu_torch.utils import profiling
 from rspc_tpu_torch.viz import png, render
 from rspc_tpu_torch.viz.render import BG, ViewState, render_to_png
+from torch_native import jax_native, python_codecs
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,6 +179,7 @@ def test_render_to_png_at_full_width_matches_jax(tmp_path):
 
 
 def test_lzf_same_bytes_as_jax():
+    jax_native()
     if not (native.available() and j_native.available()):
         pytest.skip("native library unavailable (no toolchain)")
     rng = np.random.default_rng(1)
@@ -190,16 +192,10 @@ def test_lzf_same_bytes_as_jax():
         # the Python codec reads the native bytes, and the reverse; its own
         # bytes (which may differ from the native codec's) equal the JAX
         # package's Python codec's
-        saved = [(m, m._lib, m._tried) for m in (native, j_native)]
-        for m, _, _ in saved:
-            m._lib, m._tried = None, True
-        try:
+        with python_codecs():
             assert pcd._lzf_decompress(comp, len(blob)) == blob
             py = pcd._lzf_compress(blob)
             assert py == j_pcd._lzf_compress(blob)
-        finally:
-            for m, lib, tried in saved:
-                m._lib, m._tried = lib, tried
         assert pcd._lzf_decompress(py, len(blob)) == blob
 
 
@@ -232,6 +228,7 @@ def test_load_dataset_clouds_matches_jax(tmp_path, monkeypatch, route):
     os.makedirs(ddir)
     _jax_dataset(ddir)
     if route == "native":
+        jax_native()
         if not (native.available() and j_native.available()):
             pytest.skip("native library unavailable (no toolchain)")
         want = j_dataset.load_dataset_clouds("mix", 4, ddir)

@@ -40,6 +40,18 @@ from rspc_tpu_torch.registration.ndt import (
     ndt_align,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's PyTorch CPU ops on one thread: the suite runs
+    several worker processes on few cores, where torch's spinning
+    intra-op threads slow every worker down by an order of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 with open(os.path.join(GOLDEN_DIR, "goldens.json")) as _f:

@@ -57,6 +57,11 @@ sweep (``sweep_cells=512``), the JAX package on the CPU and the port on
 ``--device``, each on its own renders of the same scene, and prints
 each run's converged count, max |T - T_gt| and wall, each mode's max
 |T - T_frozen| within its package, and max |T_jax - T_port| per mode.
+With ``--jax-edges`` the port registers the JAX package's frames, and its
+phase 1 returns the JAX package's edge clouds (a monkeypatch of
+``registration/chainscan.py::extract_edge_features_batch``, as
+tests/test_torch_edge_schemes.py swaps them), so that the two chains
+are compared alone.
 
 Not a pytest module (the JAX package takes minutes per scheme at this
 size on the CPU). Run from the repository root:
@@ -68,7 +73,8 @@ size on the CPU). Run from the repository root:
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py phase1 [--size=WxH] [--device=cuda] [scene ...]
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py split [--size=WxH] [--device=cuda] scene
     JAX_PLATFORMS=cpu python tests/torch_reference_parity.py serving [--size=WxH] [--device=cuda] [yaw ...]
-    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py ndt_modes [--size=WxH] [--device=cuda]
+    JAX_PLATFORMS=cpu python tests/torch_reference_parity.py ndt_modes [--size=WxH] \
+        [--device=cuda] [--jax-edges]
 """
 
 import dataclasses
@@ -441,23 +447,43 @@ def serving(args) -> int:
 
 
 def ndt_modes(args) -> int:
-    """``ndt_modes [--size=WxH] [--device=cuda]``."""
+    """``ndt_modes [--size=WxH] [--device=cuda] [--jax-edges]``."""
+    import contextlib
+    from unittest import mock
+
     from rspc_tpu.presets import north_star_config as j_north_star
     from rspc_tpu_torch.capture.synthetic import SyntheticSequence as TSequence
     from rspc_tpu_torch.ops.deproject import Intrinsics as TIntrinsics
     from rspc_tpu_torch.presets import north_star_config as t_north_star
+    from rspc_tpu_torch.registration import chainscan as tchain
 
-    opts = dict(a[2:].split("=", 1) for a in args if a.startswith("--"))
+    opts = dict((a[2:].split("=", 1) + [""])[:2] for a in args if a.startswith("--"))
     width, height = (int(x) for x in opts.get("size", "640x480").split("x"))
     device = opts.get("device", "cpu")
     seq = SyntheticSequence(n_frames=N_FRAMES, yaw_step=YAW_STEP,
                             intr=Intrinsics.simple(width, height))
     gt = np.stack([seq.gt_transform(k) for k in range(1, N_FRAMES)])
+    jclouds = seq.clouds()
+    swap = contextlib.nullcontext()
+    if "jax-edges" in opts:
+        feats = js.NDTEdgeBasedRegistration(
+            rads=YAW_STEP, config=j_north_star()).batch_extract_features(jclouds)
+        port_clouds = [cloud_from_numpy(_np(c, ("xyz", "rgb", "valid")), organized=True,
+                                        device=device) for c in jclouds]
+        real = tchain.extract_edge_features_batch
+
+        def jax_edges(frames, cfg):
+            _, normals, n_valid = real(frames, cfg)
+            return [cloud_from_numpy(_np(f), device=device) for f in feats], normals, n_valid
+
+        swap = mock.patch.object(tchain, "extract_edge_features_batch", jax_edges)
+        print("ndt_modes: the port's phase 1 returns the JAX package's edge clouds", flush=True)
+    else:
+        port_clouds = TSequence(n_frames=N_FRAMES, yaw_step=YAW_STEP,
+                                intr=TIntrinsics.simple(width, height)).clouds(device=device)
     sides = {
-        "jax": (js.NDTEdgeBasedRegistration, j_north_star(), seq.clouds()),
-        f"port ({device})": (ts.NDTEdgeBasedRegistration, t_north_star(), TSequence(
-            n_frames=N_FRAMES, yaw_step=YAW_STEP,
-            intr=TIntrinsics.simple(width, height)).clouds(device=device)),
+        "jax": (js.NDTEdgeBasedRegistration, j_north_star(), jclouds),
+        f"port ({device})": (ts.NDTEdgeBasedRegistration, t_north_star(), port_clouds),
     }
     modes = {"frozen": {}, "exact": {"pcl_exact_line_search": True},
              "sweep": {"sweep_cells": 512}}
@@ -467,7 +493,8 @@ def ndt_modes(args) -> int:
             cfg = dataclasses.replace(base, ndt=dataclasses.replace(base.ndt, **kw))
             t0 = time.perf_counter()
             scheme = cls(rads=YAW_STEP, config=cfg)
-            scheme.registration(clouds)
+            with swap if side != "jax" else contextlib.nullcontext():
+                scheme.registration(clouds)
             t = scheme.total_transforms
             totals[side, mode] = np.asarray(t.cpu() if hasattr(t, "cpu") else t)
             conv = [bool(f.converged) for _, f in scheme.results]
