@@ -137,7 +137,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``sweep_cells=512`` (9/9, totals within 1e-4 of the gather path's);
      then the first NDT pair at the PCL default neighbourhood (27 cells)
      with ``sweep_cells=-1`` (auto, 512) against the gather path (1e-5),
-     and each line search's host syncs per Newton step on it;
+     and each line search's host syncs per Newton step on it; then
+     tests/test_parallel.py's cube case in each mode against the port's
+     CPU run (``CUBE_MODES``);
  17. ``input_side`` on frame 0 (640x480): ``passthrough`` against its
      numpy mask and ``statistical_outlier_removal(mean_k=50,
      stddev_mult=1.5)`` on all 307,200 slots against a scipy ``cKDTree``
@@ -163,7 +165,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      printed); at ratio 0.3 the default rows meet the floors of
      tests/test_feature_quality.py; ``python -m
      rspc_tpu_torch.tools.feature_quality`` as a process (rc 0, its
-     rows printed). No kernel launches.
+     rows printed). No kernel launches;
+ 19. ``config1`` (run after config 2): BASELINE config 1
+     (``benchmarks/workloads.py:82-107``), frames 0 and 1 flattened,
+     ``voxel_downsample(c, 0.02, 10240)`` as set-up, ``icp_align(down[1],
+     down[0], ICPConfig(), static_y_guess(yaw))`` timed: the min wall of
+     3 after a warm-up, the host syncs, B1's shape and its launches in
+     one run from counts set to 0 (no plain sweep on the card); converged, with
+     fitness and transform within 1e-4 of the port's CPU run of the same
+     clouds.
 
 A kernel's time (``ms``) is the kernel's own (CUDA events around
 launches on inputs the wrapper packed once; for the NN sweep both
@@ -253,6 +263,21 @@ SCALE_TIMEOUT_S = 300
 NDT_EXACT_DELTA = 1e-3  # exact against frozen line search totals (JAX: 1.1e-5, RESULTS.md)
 NDT_SWEEP_TOL = 1e-4  # compact-cell sweep against gather path totals
 NDT_PAIR_TOL = 1e-5  # one pair, auto sweep vs gather (the JAX test's 5e-6, f32 on the card)
+# tests/test_parallel.py's NDT case: 1,024 points in a 4 m cube moved by a
+# 0.05 rad yaw and a shift, on a 16^3 grid, in each NDT mode (the sweep
+# with every valid cell compacted), held card against CPU. Its last
+# Newton steps are decided below one ulp of the score: the sweep reduces
+# 1,024 cells per point in another order on the card and takes one step
+# fewer there, within one step's length (4.06e-4; PERF.md section 6)
+CUBE_MODES = {"gather": {}, "exact": {"pcl_exact_line_search": True},
+              "sweep": {"sweep_cells": 1024}}
+CUBE_TOL = 1e-5
+CUBE_SWEEP_TOL = 5e-4
+# BASELINE config 1 (benchmarks/workloads.py:82-107): frames 0 and 1,
+# voxel-downsampled, point-to-point ICP with the reference defaults,
+# held against the port's CPU run of the same clouds
+CONFIG1_LEAF, CONFIG1_CAP = 0.02, 10_240
+CONFIG1_TOL = 1e-4
 UNDISTORT_TOL = 2e-4  # tests/test_image_ops.py's round-trip bound
 NORMAL_GAP = 1e-5  # m^2: below this eigenvalue gap a radius normal is held by NORMAL_RQ_TOL
 NORMAL_RQ_TOL = 1e-7  # m^2: n^T C n above the smallest eigenvalue (the f32 moment error)
@@ -1850,7 +1875,98 @@ def phase_ndt_modes(dev, seq, clouds):
     log(f"ndt_modes pair: auto sweep against the gather path {pair_err:.3e} (gate {NDT_PAIR_TOL})")
     if not pair_err <= NDT_PAIR_TOL:
         raise AssertionError(f"ndt_modes pair: the sweep differs from the gather path {pair_err}")
+    ndt_cube(dev)
     return total, runs["exact"][0].total_transforms
+
+
+def cube_case():
+    """(source, target) xyz of tests/test_parallel.py's NDT case."""
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(0, 4, (1024, 3)).astype(np.float32)
+    c, s = np.cos(0.05), np.sin(0.05)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    return pts @ rot.T + np.float32([0.02, 0.0, -0.01]), pts
+
+
+def ndt_cube(dev):
+    """The cube case in each NDT mode on the card against the port's CPU
+    run: iterations equal and transforms within ``CUBE_TOL`` (the sweep:
+    iterations within one and ``CUBE_SWEEP_TOL``; see ``CUBE_MODES``)."""
+    import torch
+
+    from rspc_tpu_torch.cloud import Cloud
+    from rspc_tpu_torch.config import NDTConfig
+    from rspc_tpu_torch.registration.ndt import build_ndt_grid, ndt_align
+
+    src_np, tgt_np = cube_case()
+    for name, extra in CUBE_MODES.items():
+        cfg = NDTConfig(dense_grid_dim=16, transformation_epsilon=1e-4, **extra)
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            src = Cloud.from_numpy(src_np, device=where)
+            res = ndt_align(src, build_ndt_grid(Cloud.from_numpy(tgt_np, device=where), cfg), cfg)
+            out[where.type] = (int(res.iterations), res.transform.cpu().numpy(), float(res.score))
+        err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        log(f"ndt_modes cube {name}: card {out['cuda'][0]} Newton steps, score "
+            f"{out['cuda'][2]:.6f}; CPU {out['cpu'][0]} steps, score {out['cpu'][2]:.6f}; "
+            f"transforms {err:.3e} apart")
+        steps = abs(out["cuda"][0] - out["cpu"][0])
+        ok = (steps <= 1 and err <= CUBE_SWEEP_TOL) if name == "sweep" else (
+            steps == 0 and err <= CUBE_TOL)
+        if not ok:
+            raise AssertionError(f"ndt_modes cube {name}: card {out['cuda'][:1]} against CPU "
+                                 f"{out['cpu'][:1]}, {err:.3e} apart")
+
+
+def phase_config1(dev, clouds):
+    """BASELINE config 1: frames 0 and 1 flattened, ``voxel_downsample(c,
+    0.02, 10240)`` as set-up, then the timed ``icp_align(down[1], down[0],
+    ICPConfig(), static_y_guess(yaw))`` (as ``benchmarks/workloads.py``
+    times it): the min wall of 3 after a warm-up, the host syncs, and
+    one run of both from counts set to 0 that must launch B1 (and no
+    plain version on the card); converged, with fitness and transform
+    within ``CONFIG1_TOL`` of the port's CPU run of the same clouds."""
+    import torch
+
+    from rspc_tpu_torch.cloud import Cloud
+    from rspc_tpu_torch.config import ICPConfig
+    from rspc_tpu_torch.ops.transform import static_y_guess
+    from rspc_tpu_torch.ops.voxel import voxel_downsample
+    from rspc_tpu_torch.registration.icp import icp_align
+
+    flat = [Cloud(c.xyz.reshape(-1, 3), c.rgb.reshape(-1, 3), c.valid.reshape(-1))
+            for c in clouds[:2]]
+
+    def align(down, where):
+        res = icp_align(down[1], down[0], ICPConfig(), static_y_guess(YAW_STEP).to(where))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        return res
+
+    def run(pair, where):
+        down = [voxel_downsample(c, CONFIG1_LEAF, CONFIG1_CAP) for c in pair]
+        return down, align(down, where)
+
+    (down, res), launches, plain = counted(lambda: run(flat, dev))
+    times = timed_runs("config1", lambda: align(down, dev))
+    _, syncs = count_syncs(lambda: align(down, dev))
+    cpu = torch.device("cpu")
+    _, ref = run([c.map(lambda x: x.cpu()) for c in flat], cpu)
+    t_err = float((res.transform.cpu() - ref.transform).abs().max())
+    f_err = abs(float(res.fitness) - float(ref.fitness))
+    shape = f"{down[1].capacity} x {down[0].capacity}"
+    log(f"config1 min wall of icp_align {min(times):.4f} s, {syncs} host syncs; converged "
+        f"{bool(res.converged)} in {int(res.iterations)} iterations, fitness "
+        f"{float(res.fitness):.6e}; against the CPU run: transform {t_err:.3e}, fitness "
+        f"{f_err:.3e} (CPU {int(ref.iterations)} iterations); B1 at {shape} "
+        f"({int(down[1].valid.sum())} x {int(down[0].valid.sum())} valid): launches "
+        f"{launches}; plain on CUDA {plain}")
+    if not bool(res.converged) or t_err > CONFIG1_TOL or f_err > CONFIG1_TOL:
+        raise AssertionError(f"config1: converged {bool(res.converged)}, transform {t_err:.3e}, "
+                             f"fitness {f_err:.3e}")
+    if launches["nn_sweep"] <= 0 or launches["nn_sweep_split"] != 0 or any(plain.values()):
+        raise AssertionError(f"config1 kernels: {launches}, plain {plain}")
+    return launches
 
 
 def sor_oracle(xyz: np.ndarray, valid: np.ndarray, mean_k: int, stddev_mult: float):
@@ -2388,6 +2504,7 @@ def main() -> int:
     per_path = {"north star": timed("north star", phase_slice, dev, seq, clouds),
                 "incremental": timed("incremental", phase_incremental, dev, seq, clouds)}
     per_path["config 2"], hc = timed("config 2", phase_edges5, dev, clouds)
+    per_path["config1"] = timed("config1", phase_config1, dev, clouds)
     ref_clouds, ref_thetas = replay_capture(seq, dev)
     per_path["config 3"] = timed("config 3", phase_icp_edge, dev, seq, clouds, ref_thetas)
     per_path["reference preset"] = timed("reference preset", phase_reference, dev, seq,

@@ -25,9 +25,9 @@ from rspc_tpu_torch import cuda_build
 from rspc_tpu_torch.ops.image import (
     SOBEL_X,
     SOBEL_Y,
-    _pad_edge_hw,
+    _conv_contracted,
+    _fma,
     gaussian_kernel_3x3,
-    separable_taps,
     shift2d,
     shift_hw,
 )
@@ -179,40 +179,6 @@ def _hysteresis(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
             [_hysteresis_plain(s, w) for s, w in zip(strong, weak)]
         )
     return _hysteresis_plain(strong, weak)
-
-
-def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to f32, as a fused multiply-add does
-    (the product of two f32 values is exact in f64)."""
-    return (a.double() * b + c.double()).float()
-
-
-def _contracted_sum(terms) -> torch.Tensor:
-    """The sum of ``k * x`` over ``(k, x)`` terms in order, with the
-    multiply-adds contracted as the JAX package's jitted program contracts
-    them: of the first two products, the one by a negative tap is rounded
-    and the other fused (the first when the signs agree); every later
-    product is fused into the running sum. This is XLA's choice on the
-    CPU, bit for bit, for the batched Canny of rendered 640x480 frames;
-    the program around it can change the choice, and with it a few tens
-    of edge pixels per frame."""
-    (k0, x0), (k1, x1) = terms[:2]
-    if k0 < 0 <= k1:
-        (k0, x0), (k1, x1) = (k1, x1), (k0, x0)
-    acc = _fma(x0, k0, x1 * k1)
-    for k, x in terms[2:]:
-        acc = _fma(x, k, acc)
-    return acc
-
-
-def _conv_contracted(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
-    """``ops/image.py::conv2d_same`` of ``[H, W]`` with a rank-1 kernel,
-    each pass's taps summed by :func:`_contracted_sum`."""
-    kv, kr = separable_taps(kernel)
-    h, w = img.shape
-    p = _pad_edge_hw(img, len(kv) // 2, len(kr) // 2)
-    t = _contracted_sum([(float(k), p[i:i + h, :]) for i, k in enumerate(kv) if k != 0.0])
-    return _contracted_sum([(float(k), t[:, j:j + w]) for j, k in enumerate(kr) if k != 0.0])
 
 
 def canny_masks(intensity: torch.Tensor, low: float, high: float):

@@ -48,6 +48,50 @@ def separable_taps(kernel: np.ndarray):
             (vt[0] * np.sqrt(s[0])).astype(np.float32))
 
 
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32, as a fused multiply-add does
+    (the product of two f32 values is exact in f64)."""
+    return (a.double() * b + c.double()).float()
+
+
+def _contracted_sum(terms) -> torch.Tensor:
+    """The sum of ``k * x`` over ``(k, x)`` terms in order, with the
+    multiply-adds contracted as the JAX package's jitted program contracts
+    them on the CPU: of the first two products, the one by a negative tap
+    is rounded and the other fused (the first when the signs agree); every
+    later product is fused into the running sum. One term is one multiply
+    (the one-tap pass of a ``k[None, :]`` or ``k[:, None]`` kernel). The
+    program around a sum can change the choice: see the callers."""
+    if len(terms) == 1:
+        k, x = terms[0]
+        return x * k
+    (k0, x0), (k1, x1) = terms[:2]
+    if k0 < 0 <= k1:
+        (k0, x0), (k1, x1) = (k1, x1), (k0, x0)
+    acc = _fma(x0, k0, x1 * k1)
+    for k, x in terms[2:]:
+        acc = _fma(x, k, acc)
+    return acc
+
+
+def _column_pass(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """The column pass of :func:`_conv_contracted`: the edge-padded
+    image's rows weighted by the kernel's column taps."""
+    kv, kr = separable_taps(kernel)
+    h = img.shape[0]
+    p = _pad_edge_hw(img, len(kv) // 2, len(kr) // 2)
+    return _contracted_sum([(float(k), p[i:i + h, :]) for i, k in enumerate(kv) if k != 0.0])
+
+
+def _conv_contracted(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """:func:`conv2d_same` of ``[H, W]`` with a rank-1 kernel, each pass's
+    taps summed by :func:`_contracted_sum`."""
+    _, kr = separable_taps(kernel)
+    t = _column_pass(img, kernel)
+    w = img.shape[1]
+    return _contracted_sum([(float(k), t[:, j:j + w]) for j, k in enumerate(kr) if k != 0.0])
+
+
 def box_sum(img: torch.Tensor, radius: int) -> torch.Tensor:
     """Sum over a (2r+1)^2 window via two cumulative passes (the
     integral-image trick); ``[H, W]`` and ``[H, W, C]``."""

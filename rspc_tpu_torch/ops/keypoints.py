@@ -39,7 +39,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rspc_tpu_torch.ops.image import conv2d_same
+from rspc_tpu_torch.ops.image import (
+    _column_pass,
+    _conv_contracted,
+    _fma,
+    separable_taps,
+)
 
 
 def _gauss_kernel1d(sigma: float, radius: int) -> np.ndarray:
@@ -48,20 +53,53 @@ def _gauss_kernel1d(sigma: float, radius: int) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+def _unit(gray: torch.Tensor) -> torch.Tensor:
+    """0..255 gray to [0, 1]: XLA folds the JAX package's ``/ 255.0``
+    into a multiply by the f32 reciprocal."""
+    return gray.to(torch.float32) * float(np.float32(1.0 / 255.0))
+
+
+def _blur_parts(img: torch.Tensor, sigma: float):
+    """The Gaussian blur of the JAX package's ``_blur`` (``conv2d_same``
+    with ``k[None, :]``, then ``k[:, None]``) as ``(s, c)``, the blur
+    being ``s * c`` rounded: the first convolution's one-tap column pass
+    and its row taps, then the second's column taps ``s``, each pass's
+    multiply-adds contracted as the jitted program contracts them, and
+    the second's one-tap row pass ``c``, which the jitted detector fuses
+    into the DoG's subtraction (:func:`_detect_octave`)."""
     radius = max(1, int(3 * sigma + 0.5))
     k = _gauss_kernel1d(sigma, radius)
-    out = conv2d_same(img, k[None, :])
-    return conv2d_same(out, k[:, None])
+    rows = _conv_contracted(img, k[None, :])
+    return _column_pass(rows, k[:, None]), float(separable_taps(k[:, None])[1][0])
+
+
+def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    s, c = _blur_parts(img, sigma)
+    return s * c
+
+
+def _upsample2_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """2x linear upsampling of one axis as XLA's CPU dot forms the JAX
+    package's resize: each output is its two taps (0.25, 0.75), the lower
+    input index first, summed by a fused multiply-add into the first
+    product; the border outputs copy the edge sample."""
+    x = x.movedim(axis, 0)
+    prev = torch.cat([x[:1], x[:-1]])
+    nxt = torch.cat([x[1:], x[-1:]])
+    even = _fma(x, 0.75, prev * 0.25)
+    odd = _fma(nxt, 0.25, x * 0.75)
+    even[0] = x[0]
+    odd[-1] = x[-1]
+    out = torch.stack([even, odd], dim=1).reshape(2 * x.shape[0], *x.shape[1:])
+    return out.movedim(0, axis)
 
 
 def _upsample2(img: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsampling with half-pixel centres and edge clamping,
     which is what ``jax.image.resize(..., "linear")`` gives when it
-    upsamples (its triangle weights renormalised at the border)."""
-    h, w = img.shape
-    return F.interpolate(img[None, None], size=(2 * h, 2 * w), mode="bilinear",
-                         align_corners=False, antialias=False)[0, 0]
+    upsamples (its triangle weights renormalised at the border): columns
+    first, then rows, as its two dots run."""
+    return _upsample2_axis(_upsample2_axis(img, 1), 0)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -81,6 +119,25 @@ def _first_argmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(x == best, pos, n).amin(dim=dim)
 
 
+def _scale_space(img: torch.Tensor, num_scales: int, base_blur: float):
+    """(Gaussian levels ``[S+3]`` of ``[H, W]``, DoG stack ``[S+2, H, W]``)
+    of one octave. ``base_blur`` is the blur the base image already
+    carries in this octave's pixel units (0 for a raw base, 1 for the
+    2x-upsampled base, 1.6 for a chained base); each level blurs by the
+    increment sqrt(s^2 - base_blur^2)."""
+    k = 2.0 ** (1.0 / num_scales)
+    sigmas = [1.6 * (k**i) for i in range(num_scales + 3)]
+    incr = lambda s: float(np.sqrt(max(s * s - base_blur * base_blur, 1e-6)))
+    # each level as (s, c), the blur s * c; the base itself as (img, None)
+    parts = [_blur_parts(img, incr(s)) for s in sigmas[1:]]
+    parts.insert(0, (img, None) if base_blur >= sigmas[0] else _blur_parts(img, incr(sigmas[0])))
+    gauss = [s if c is None else s * c for s, c in parts]
+    # the jitted program fuses the upper level's last multiply into the
+    # subtraction: fma(s, c, -lower)
+    dog = torch.stack([_fma(*parts[i + 1], -gauss[i]) for i in range(len(gauss) - 1)])
+    return gauss, dog
+
+
 def _detect_octave(
     img: torch.Tensor,
     max_keypoints: int,
@@ -89,21 +146,11 @@ def _detect_octave(
     edge_ratio: float,
     base_blur: float,
 ):
-    """DoG extrema on one octave of the (already [0,1]-scaled) image.
-
-    ``base_blur`` is the blur the base image already carries in this
-    octave's pixel units (0 for a raw base, 1 for the 2x-upsampled base,
-    1.6 for a chained base); each level blurs by the increment
-    sqrt(s^2 - base_blur^2). Returns (xy, score, valid, sigma) in this
-    octave's units plus the next octave's base image."""
+    """DoG extrema on one octave of the (already [0,1]-scaled) image
+    (``base_blur``: :func:`_scale_space`). Returns (xy, score, valid,
+    sigma) in this octave's units plus the next octave's base image."""
     k = 2.0 ** (1.0 / num_scales)
-    sigmas = [1.6 * (k**i) for i in range(num_scales + 3)]
-    incr = lambda s: float(np.sqrt(max(s * s - base_blur * base_blur, 1e-6)))
-    if base_blur >= sigmas[0]:
-        gauss = [img] + [_blur(img, incr(s)) for s in sigmas[1:]]
-    else:
-        gauss = [_blur(img, incr(s)) for s in sigmas]
-    dog = torch.stack([gauss[i + 1] - gauss[i] for i in range(len(gauss) - 1)])
+    gauss, dog = _scale_space(img, num_scales, base_blur)
     next_base = gauss[num_scales][::2, ::2]
 
     h, w = img.shape
@@ -133,9 +180,11 @@ def _detect_octave(
         - torch.roll(mid, (1, -1), (1, 2))
     )
     tr = dxx + dyy
-    det = dxx * dyy - dxy * dxy
+    det = _fma(dxx, dyy, -(dxy * dxy))
     r = edge_ratio
-    not_edge = (det > 0) & (tr * tr * r < (r + 1.0) ** 2 * det * r)
+    # XLA folds (r + 1)^2 * det * r into one constant times det
+    r_det = float(np.float32((r + 1.0) ** 2 * r))
+    not_edge = (det > 0) & (tr * tr * r < det * r_det)
 
     margin = 8  # keep away from borders
     row = torch.arange(h, device=img.device)[:, None]
@@ -159,11 +208,11 @@ def _detect_octave(
     gx_k = gather_sp(0.5 * (torch.roll(mid, -1, 2) - torch.roll(mid, 1, 2)))
     gy_k = gather_sp(0.5 * (torch.roll(mid, -1, 1) - torch.roll(mid, 1, 1)))
     axx, ayy, axy = gather_sp(dxx), gather_sp(dyy), gather_sp(dxy)
-    det2 = axx * ayy - axy * axy
+    det2 = _fma(axx, ayy, -(axy * axy))
     safe = torch.abs(det2) > 1e-12
     inv_det = torch.where(safe, 1.0 / torch.where(safe, det2, 1.0), 0.0)
-    off_x = -(ayy * gx_k - axy * gy_k) * inv_det
-    off_y = -(axx * gy_k - axy * gx_k) * inv_det
+    off_x = -_fma(ayy, gx_k, -(axy * gy_k)) * inv_det
+    off_y = -_fma(axx, gy_k, -(axy * gx_k)) * inv_det
     ok_off = safe & (torch.abs(off_x) < 0.75) & (torch.abs(off_y) < 0.75)
     xs = xs + torch.clamp(torch.where(ok_off, off_x, 0.0), -0.5, 0.5)
     ys = ys + torch.clamp(torch.where(ok_off, off_y, 0.0), -0.5, 0.5)
@@ -202,7 +251,7 @@ def detect_keypoints(
     are skipped."""
     if first_octave not in (-1, 0):
         raise ValueError(f"first_octave must be -1 or 0, not {first_octave}")
-    img = gray.to(torch.float32) / 255.0
+    img = _unit(gray)
     per = []
     base = _upsample2(img) if first_octave < 0 else img
     for o in range(first_octave, num_octaves):
@@ -306,7 +355,7 @@ def compute_descriptors(
     odometry uses N = 3). With N = 1 (the default) it returns ``desc
     f32[K,128]`` alone, zero for an invalid keypoint."""
     dev = gray.device
-    img = gray.to(torch.float32) / 255.0
+    img = _unit(gray)
     kk = 2.0 ** (1.0 / num_scales)
     log_kk = float(np.log(np.float32(kk)))
     lo = num_scales if first_octave < 0 else 0  # levels below sigma 1.6

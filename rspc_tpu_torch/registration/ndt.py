@@ -392,9 +392,18 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
             cols += [x0 * x0, x0 * x1, x0 * x2, x1 * x1, x1 * x2, x2 * x2]
         return torch.stack(cols, dim=-1)
 
+    def _value(ch0):
+        """-score from the per-point channel ``ch0`` = ``expt.sum(-1)``:
+        its dot with the basis' constant column, the product that gives
+        the JAX package's gram matrix its ``[0, 0]``, taken alone so that
+        all three evaluations round one sum alike. The line search's
+        ``f_res < phi0`` compares values from two of them, and near the
+        optimum the decrease falls below one ulp of the sum."""
+        return d1 * torch.dot(ch0, torch.ones_like(ch0))
+
     def fixed_objective(p, mu, ic6, mask):
         _, _, expt = _common(p, mu, ic6, mask)
-        return psum((d1 * expt.sum(),), group)[0]
+        return psum((_value(expt.sum(-1)),), group)[0]
 
     def fixed_value_grad(p, mu, ic6, mask):
         (be0, be1, be2), _, expt = _common(p, mu, ic6, mask)
@@ -402,7 +411,7 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
         ch = torch.stack([expt.sum(-1), (w * be0).sum(-1), (w * be1).sum(-1),
                           (w * be2).sum(-1)])  # [4,N]
         mm = ch @ _basis(False)
-        f = d1 * mm[0, 0]
+        f = _value(ch[0])
         g_t = -mm[1:4, 0]
         m = -mm[1:4, 1:4]
         dr, _ = _rotation_derivatives(p[3:6])
@@ -421,7 +430,7 @@ def _make_objective(src: Cloud, grid: NDTGrid, config: NDTConfig, group=None):
         )
         ch = torch.stack([c.sum(-1) for c in chans])  # [10,N]
         mm = ch @ _basis(True)  # [10,10]
-        f = d1 * mm[0, 0]
+        f = _value(ch[0])
         g_t = -mm[1:4, 0]
         m = -mm[1:4, 1:4]
         htt = mm[4 + sym, 0]
