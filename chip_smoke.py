@@ -37,8 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the incremental workload: ``IncrementalICP`` (the incremental
      benchmark's config: ``PipelineConfig()`` without the fitness sweep)
      on the same 10 full clouds, a 3,072,000-point target capacity that
-     routes every sweep to B2: one warm-up and timed runs, a staged run
-     (stage walls and host syncs), and one counted run that must launch
+     routes every sweep to B2: one warm-up and timed runs, a run traced
+     by the program's own spans (host seconds by span, the ``sync.*``
+     counts), and one counted run that must launch
      B2 and no plain version on the card, with every pair converged; the
      same registration on B1's route must agree per pair within 1e-4
      (the kernel gives both routes the same winners bit for bit, so the
@@ -759,52 +760,23 @@ def phase_slice(dev, seq, clouds):
     return launches
 
 
-def incremental_stages(clouds, cfg):
-    """The scan path of ``IncrementalICP`` step by step, each stage
-    bracketed by ``torch.cuda.synchronize()``: (stage seconds, host syncs
-    of the unbracketed steps, per-pair transforms)."""
-    import warnings
+def traced_stages(fn):
+    """One run of ``fn`` traced by the program's own spans
+    (``rspc_tpu_torch/utils/profiling.py``): (host seconds by span name,
+    longest first, and the ``sync.*`` counts)."""
+    from rspc_tpu_torch.utils import profiling
 
-    import torch
-
-    from rspc_tpu_torch.cloud import Cloud
-    from rspc_tpu_torch.ops.transform import apply_transform_cloud
-    from rspc_tpu_torch.ops.voxel import voxel_downsample
-    from rspc_tpu_torch.registration.bufferops import _as_unorganized, _block_append
-    from rspc_tpu_torch.registration.icp import icp_align
-
-    secs = {"downsample": 0.0, "icp": 0.0, "transform+append": 0.0}
-    syncs = 0
-
-    def stage(name, fn):
-        nonlocal syncs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        secs[name] += time.perf_counter() - t0
-        syncs += sum("synchroniz" in str(w.message) for w in caught)
-        return out
-
-    flat = [_as_unorganized(c) for c in clouds]
-    frame_cap = flat[0].capacity
-    target = _block_append(Cloud.empty(len(flat) * frame_cap, flat[0].device), flat[0], 0)
-    downs = stage("downsample", lambda: [
-        voxel_downsample(c, cfg.voxel.leaf_size, cfg.voxel.max_points) for c in flat[1:]])
-    transforms = []
-    for i, (down, cloud) in enumerate(zip(downs, flat[1:]), start=1):
-        res = stage("icp", lambda: icp_align(down, target, cfg.icp))
-        target = stage("transform+append", lambda: _block_append(
-            target, apply_transform_cloud(res.transform, cloud), frame_cap * i,
-            gate=res.converged))
-        transforms.append(res.transform)
-    return secs, syncs, torch.stack(transforms)
+    profiling.enable()
+    try:
+        fn()
+    finally:
+        profiling.disable()
+    out = profiling.collect()
+    secs: dict = {}
+    for sp in out["spans"]:
+        secs[sp["name"]] = secs.get(sp["name"], 0.0) + (sp["end_ns"] - sp["start_ns"]) * 1e-9
+    syncs = {k: v for k, v in out["counters"].items() if k.startswith("sync.")}
+    return dict(sorted(secs.items(), key=lambda kv: -kv[1])), syncs
 
 
 def phase_incremental(dev, seq, clouds):
@@ -842,10 +814,9 @@ def phase_incremental(dev, seq, clouds):
     log("incremental timed runs (s): " + ", ".join(f"{t:.4f}" for t in times))
 
     log("incremental profile: " + device_profile(run))
-    secs, syncs, staged_t = incremental_stages(clouds, config)
-    log("incremental stages (s, synchronize between): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
-        + f"; host syncs in the staged run: {syncs}")
+    secs, syncs = traced_stages(run)
+    log("incremental spans (host s, summed by name): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()) + f"; host syncs {syncs}")
 
     cuda_build.reset_counts()
     scheme, result = run()
@@ -863,9 +834,6 @@ def phase_incremental(dev, seq, clouds):
     xyz = result.xyz.cpu().numpy()
     if xyz.shape != (cap, 3) or not np.isfinite(xyz).all():
         raise AssertionError(f"incremental result: shape {xyz.shape} or non-finite xyz")
-    staged_diff = float((staged_t - transforms).abs().max())
-    if staged_diff > INC_PAIR_TOL:
-        raise AssertionError(f"staged run differs from the scheme by {staged_diff:.3e}")
 
     # the same registration with B1's route serving every sweep
     saved = nn.STREAM_TARGET
@@ -880,8 +848,7 @@ def phase_incremental(dev, seq, clouds):
     pair_diff = float((b1_t - transforms).abs().max())
     b1_conv = [bool(r.converged) for r in b1_scheme.results]
     log(f"B1-routed run: launches {b1_launches}; max per-pair |T_B2 - T_B1| "
-        f"{pair_diff:.3e}; valid {int(result.count())} vs {int(b1_result.count())}; "
-        f"staged run vs scheme {staged_diff:.3e}")
+        f"{pair_diff:.3e}; valid {int(result.count())} vs {int(b1_result.count())}")
     if b1_launches["nn_sweep"] <= 0 or b1_launches["nn_sweep_split"] != 0:
         raise AssertionError(f"the B1-routed run did not take B1: {b1_launches}")
     if pair_diff > INC_PAIR_TOL or b1_conv != converged:

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from rspc_tpu_torch import cuda_build
+from rspc_tpu_torch.utils import profiling
 
 # big-but-finite penalty for invalid target rows, and the winner check
 # that rejects it (rspc_tpu/ops/nn_pallas.py keeps the same pair)
@@ -102,9 +103,18 @@ def _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score, best_idx, ok):
 
 def _plain_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int, centroid=None):
     """The plain sweep's (best score, best index) per source, before the
-    re-score (an invalid source: score inf, index 0)."""
+    re-score (an invalid source: score inf, index 0). Counts and traces
+    the source rows it is handed, as the kernels' launch does, though it
+    sweeps only the valid ones."""
     if src_xyz.is_cuda:
         cuda_build.PLAIN_ON_CUDA["nn_sweep"] += 1
+    n = src_xyz.shape[0]
+    profiling.count("nn.source_rows", n)
+    with profiling.span("nn.sweep", route="plain", sources=n, targets=tgt_xyz.shape[0]):
+        return _plain_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk, centroid)
+
+
+def _plain_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int, centroid):
     n = src_xyz.shape[0]
     rows = tgt_valid.nonzero()
     live = int(rows[-1, 0]) + 1 if rows.numel() else 0
@@ -222,12 +232,16 @@ def _launch(src4, tgt4, live_hi, best_score, best_idx, p: SweepPlan) -> None:
 def _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str, centroid=None):
     """Both routes' launch: :func:`_pack`, :func:`_launch` on
     :func:`card_plan`; the kernel's (best score, best index) per source.
-    ``route`` names the launch count."""
-    packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid)
-    n = packed[0].shape[0]
-    if n:
-        _launch(*packed, card_plan(n, packed[0].device))
-        cuda_build.LAUNCHES[route] += 1
+    ``route`` names the launch count. Counts the source rows handed to
+    the kernel (``nn.source_rows``, valid or not) and traces the launch
+    as the span ``nn.sweep``."""
+    n, m = src_xyz.shape[0], tgt_xyz.shape[0]
+    profiling.count("nn.source_rows", n)
+    with profiling.span("nn.sweep", route=route, sources=n, targets=m):
+        packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid)
+        if n:
+            _launch(*packed, card_plan(n, packed[0].device))
+            cuda_build.LAUNCHES[route] += 1
     return packed[3], packed[4]
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from rspc_tpu_torch.ops.collectives import psum
+from rspc_tpu_torch.utils import profiling
 
 
 def _homogeneous(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -83,8 +84,11 @@ def rigid_fit_from_moments(sw, ss, sd, m) -> torch.Tensor:
     h_norm = torch.clamp(_fro(h), min=1e-30)[..., None, None]
     det_rel = _det3(h / h_norm)
     r_newton = _polar_rotation(h.transpose(-1, -2))
-    # SVD fallback with reflection correction (degenerate/planar sets)
-    u, _, vt = torch.linalg.svd(h)
+    # SVD fallback with reflection correction (degenerate/planar sets);
+    # on the card torch.linalg.svd blocks the host twice (two reports of
+    # torch's sync debug mode at this line, torch 2.11 + CUDA 12.8)
+    with profiling.wait("fit_svd", syncs=2):
+        u, _, vt = torch.linalg.svd(h)
     v = vt.transpose(-1, -2)
     det = _det3(v @ u.transpose(-1, -2))
     dvec = torch.stack(

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from rspc_tpu_torch.cloud import Cloud
+from rspc_tpu_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
 
@@ -49,7 +50,14 @@ def voxel_downsample(
 ) -> Cloud:
     """One averaged point per occupied ``leaf_size`` voxel (voxel
     coordinate floor(x / leaf)); ``min_normal_purity`` drops voxels whose
-    mean-normal length |sum n| / count falls below it."""
+    mean-normal length |sum n| / count falls below it. Traced as the span
+    ``voxel.downsample``."""
+    with profiling.span("voxel.downsample", rows=cloud.capacity, slots=max_points):
+        return _downsample(cloud, leaf_size, max_points, min_normal_purity)
+
+
+def _downsample(cloud: Cloud, leaf_size: float, max_points: int,
+                min_normal_purity: float) -> Cloud:
     xyz, rgb, valid = cloud.xyz, cloud.rgb, cloud.valid
     n = cloud.capacity
     dev = xyz.device

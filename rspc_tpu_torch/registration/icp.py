@@ -6,7 +6,8 @@ absolute MSE -> relative MSE), with ``NO_CORRESPONDENCES`` aborting below
 ``min_number_correspondences``.
 
 The JAX ``lax.while_loop`` becomes a Python loop whose stop test reads
-one device bool per iteration (one host sync per ICP iteration). The
+one device bool per iteration (one host sync per ICP iteration, the
+tracer's wait ``icp_stop``). The
 point-to-plane variant takes the colored-ICP rows (Park, Zhou, Koltun
 2017) when the config's ``color_weight`` > 0 and the target carries
 intensity gradients (``Cloud.cgrad``), and ``point_plane_mix``.
@@ -35,6 +36,7 @@ from rspc_tpu_torch.ops.transform import apply_transform
 from rspc_tpu_torch.ops.umeyama import _homogeneous, _rodrigues, plane_fit, rigid_fit
 from rspc_tpu_torch.registration.bufferops import _stride_cloud
 from rspc_tpu_torch.registration.measures import _nn_sweep
+from rspc_tpu_torch.utils import profiling
 
 # pcl::registration::DefaultConvergenceCriteria::ConvergenceState
 NOT_CONVERGED = 0
@@ -170,7 +172,13 @@ def icp_align(
 ) -> ICPResult:
     """Align ``src`` onto ``tgt`` (PCL ``icp.align(output, guess)``).
     With ``group``, every rank passes the whole ``src`` and solves on its
-    shard of the strided rows."""
+    shard of the strided rows. Traced as the span ``icp.align`` (a pair's
+    number is its order among its call's ``icp.align`` spans)."""
+    with profiling.span("icp.align", sources=src.capacity, targets=tgt.capacity):
+        return _align(src, tgt, config, init_guess, group)
+
+
+def _align(src: Cloud, tgt: Cloud, config: ICPConfig, init_guess, group) -> ICPResult:
     dev, dtype = src.xyz.device, src.xyz.dtype
     final_t = (torch.eye(4, dtype=dtype, device=dev) if init_guess is None
                else init_guess.to(dtype))
@@ -197,33 +205,38 @@ def icp_align(
         return src_t, d2, idx, w
 
     it = 0
-    while True:
-        src_t, d2, idx, w = correspondences(final_t)
-        n_corr, mse_sum = psum((w.sum(), torch.where(w > 0, d2, 0.0).sum()), group)
-        cur_mse = mse_sum / torch.clamp(n_corr, min=1.0)
-        too_few = n_corr < config.min_number_correspondences
-        tgt_m = tgt.xyz.index_select(0, idx.long())
-        if p2l:
-            tgt_n = tgt.normal.index_select(0, idx.long())
-            w_fit = _huber(w, config.huber_delta, lambda: ((src_t - tgt_m) * tgt_n).sum(-1))
-            color_kw = {}
-            if i_src is not None:
-                g_m, di, w_c = _color_rows(src_t, tgt_m, idx, w, tgt, i_src, i_tgt, config)
-                color_kw = dict(cgrad=g_m, color_resid=di, color_weights=w_c)
-            t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit,
-                              point_mix=config.point_plane_mix, group=group,
-                              **color_kw)
-            t_inc = _trust_region(t_inc, src_t, src.valid,
-                                  config.max_correspondence_distance, group)
-        else:
-            t_inc = rigid_fit(src_t, tgt_m, w, group)
-        it += 1
-        state = _pcl_state(t_inc, cur_mse, prev_mse, too_few, it, config)
-        # on a too-few abort PCL breaks before updating the transform
-        final_t = torch.where(too_few, final_t, t_inc @ final_t)
-        prev_mse = cur_mse
-        if bool(state != NOT_CONVERGED):  # host sync: the loop's stop test
-            break
+    stop = False
+    while not stop:
+        with profiling.span("icp.iter"):
+            src_t, d2, idx, w = correspondences(final_t)
+            n_corr, mse_sum = psum((w.sum(), torch.where(w > 0, d2, 0.0).sum()), group)
+            cur_mse = mse_sum / torch.clamp(n_corr, min=1.0)
+            too_few = n_corr < config.min_number_correspondences
+            with profiling.span("icp.fit"):
+                tgt_m = tgt.xyz.index_select(0, idx.long())
+                if p2l:
+                    tgt_n = tgt.normal.index_select(0, idx.long())
+                    w_fit = _huber(w, config.huber_delta,
+                                   lambda: ((src_t - tgt_m) * tgt_n).sum(-1))
+                    color_kw = {}
+                    if i_src is not None:
+                        g_m, di, w_c = _color_rows(src_t, tgt_m, idx, w, tgt, i_src, i_tgt,
+                                                   config)
+                        color_kw = dict(cgrad=g_m, color_resid=di, color_weights=w_c)
+                    t_inc = plane_fit(src_t, tgt_m, tgt_n, w_fit,
+                                      point_mix=config.point_plane_mix, group=group,
+                                      **color_kw)
+                    t_inc = _trust_region(t_inc, src_t, src.valid,
+                                          config.max_correspondence_distance, group)
+                else:
+                    t_inc = rigid_fit(src_t, tgt_m, w, group)
+            it += 1
+            state = _pcl_state(t_inc, cur_mse, prev_mse, too_few, it, config)
+            # on a too-few abort PCL breaks before updating the transform
+            final_t = torch.where(too_few, final_t, t_inc @ final_t)
+            prev_mse = cur_mse
+            with profiling.wait("icp_stop"):
+                stop = bool(state != NOT_CONVERGED)  # host sync: the loop's stop test
 
     converged = (state != NOT_CONVERGED) & (state != NO_CORRESPONDENCES)
     nan = torch.full((), float("nan"), dtype=dtype, device=dev)

@@ -64,6 +64,7 @@ from rspc_tpu_torch.registration.pairsteps import (
     _imu_guesses,
     _ndt_pair_step,
 )
+from rspc_tpu_torch.utils import profiling
 
 
 class RegistrationScheme:
@@ -378,16 +379,6 @@ class NDTEdgeBasedRegistration(_EdgeBasedRegistration):
     saves_edge_pcds = False
 
 
-def _incremental_step(target: Cloud, cloud: Cloud, icp_cfg, leaf: float,
-                      voxel_cap: int):
-    """One pair of the loop path: voxel-downsample the source, ICP it
-    against the accumulated target with no guess, and transform the full
-    cloud by the result."""
-    src_down = voxel_downsample(cloud, leaf, voxel_cap)
-    res = icp_align(src_down, target, icp_cfg)
-    return res, apply_transform_cloud(res.transform, cloud)
-
-
 def _incremental_scan(clouds: List[Cloud], icp_cfg, leaf: float,
                       voxel_cap: int, cap: int):
     """The whole incremental chain on the scan path: the downsamples of
@@ -398,14 +389,16 @@ def _incremental_scan(clouds: List[Cloud], icp_cfg, leaf: float,
     host sync decides a merge (the JAX ``lax.scan`` becomes this loop)."""
     first, rest = clouds[0], clouds[1:]
     frame_cap = first.capacity
-    target = _block_append(Cloud.empty(cap, first.device, first.xyz.dtype), first, 0)
+    with profiling.span("map.append"):
+        target = _block_append(Cloud.empty(cap, first.device, first.xyz.dtype), first, 0)
     src_downs = [voxel_downsample(c, leaf, voxel_cap) for c in rest]
     results = []
     for i, (src_down, cloud_i) in enumerate(zip(src_downs, rest), start=1):
         res = icp_align(src_down, target, icp_cfg)
-        transformed = apply_transform_cloud(res.transform, cloud_i)
-        target = _block_append(target, transformed, frame_cap * i,
-                               gate=res.converged)
+        with profiling.span("map.append"):
+            transformed = apply_transform_cloud(res.transform, cloud_i)
+            target = _block_append(target, transformed, frame_cap * i,
+                                   gate=res.converged)
         results.append(res)
     return target, results
 
@@ -422,8 +415,11 @@ class IncrementalICP(RegistrationScheme):
         self.results: List[ICPResult] = []
 
     def registration(self, clouds: Sequence) -> Cloud:
+        with profiling.call("incremental.registration", frames=len(clouds)):
+            return self._registration([_as_unorganized(c) for c in clouds])
+
+    def _registration(self, clouds: List[Cloud]) -> Cloud:
         cfg = self.config
-        clouds = [_as_unorganized(c) for c in clouds]
         cap = sum(c.capacity for c in clouds)
         if (
             cfg.use_scan
@@ -435,13 +431,19 @@ class IncrementalICP(RegistrationScheme):
                 clouds, cfg.icp, cfg.voxel.leaf_size, cfg.voxel.max_points, cap,
             )
             return target
-        target = merge_append(Cloud.empty(cap, clouds[0].device), clouds[0])
+        with profiling.span("map.append"):
+            target = merge_append(Cloud.empty(cap, clouds[0].device), clouds[0])
         self.results = []
         for cloud in clouds[1:]:
-            res, transformed = _incremental_step(
-                target, cloud, cfg.icp, cfg.voxel.leaf_size, cfg.voxel.max_points,
-            )
+            # the loop path: voxel-downsample the source, ICP it against
+            # the accumulated target with no guess, and merge the
+            # transformed full cloud where the pair converged
+            src_down = voxel_downsample(cloud, cfg.voxel.leaf_size, cfg.voxel.max_points)
+            res = icp_align(src_down, target, cfg.icp)
             self.results.append(res)
-            if bool(res.converged):  # host sync: the loop path's merge test
-                target = merge_append(target, transformed)
+            with profiling.wait("merge"):
+                merge = bool(res.converged)  # host sync: the loop path's merge test
+            if merge:
+                with profiling.span("map.append"):
+                    target = merge_append(target, apply_transform_cloud(res.transform, cloud))
         return target

@@ -1,5 +1,6 @@
-"""The port's headless renderer, PNG writer, native I/O, dataset directory
-and profiling helpers against the JAX package (CPU).
+"""The port's headless renderer, PNG writer, native I/O and dataset
+directory against the JAX package (CPU); the tracer's tests are in
+``test_torch_profiling.py``.
 
 Tolerances: PNG bytes, LZF bytes (each codec against its counterpart:
 native with native, Python with Python), the dataset loads and the saved PCD
@@ -28,7 +29,6 @@ from rspc_tpu.viz import png as j_png
 from rspc_tpu.viz import render as j_render
 from rspc_tpu_torch.cloud import Cloud, OrganizedCloud
 from rspc_tpu_torch.io import dataset, native, pcd
-from rspc_tpu_torch.utils import profiling
 from rspc_tpu_torch.viz import png, render
 from rspc_tpu_torch.viz.render import BG, ViewState, render_to_png
 from torch_native import jax_native, python_codecs
@@ -260,16 +260,3 @@ def test_save_dataset_clouds_and_output_path_match_jax(tmp_path):
     assert dataset.registration_output_path("t") == os.path.join("dataset", "t-registration")
     assert dataset.dataset_path("p", 3) == j_dataset.dataset_path("p", 3)
 
-
-def test_stage_timer_and_trace(tmp_path):
-    timers = profiling.stage_timer()
-    x = torch.ones(4)
-    with timers("a", sync=x):
-        x = x * 2
-    with timers("a"):
-        pass
-    assert timers.counts == {"a": 2} and "a: " in timers.summary()
-    profiling.device_sync({"x": x, "c": Cloud.from_numpy(np.ones((2, 3)), device="cpu")})
-    with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
