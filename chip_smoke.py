@@ -224,6 +224,9 @@ HC_LIT = (0.05, 0.1)  # high-curvature thresholds that light this scene's crease
 # max_points) against 10 full frames' capacity, 9 of them live
 INC_SRC, INC_TGT_CAP, INC_TGT_LIVE = 16_384, 10 * WIDTH * HEIGHT, 9 * WIDTH * HEIGHT
 INC_PAIR_TOL = 1e-4  # per-pair transforms, B2-routed vs B1-routed run
+# the incremental cells' sweep: a 1 cm voxel grid's 307,200 slots of a
+# VGA frame, its occupied voxels a prefix (140,000-216,000; PERF.md §4)
+CELL_SRC, CELL_SRC_LIVE = WIDTH * HEIGHT, 165_000
 # published H100 SXM peaks (700 W): HBM bytes/s and FP32 FMA/s (67 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FMA_PER_S = 33.5e12
@@ -384,17 +387,22 @@ def tie_ok(src, tgt, idx_a, idx_b, rtol=1e-4, atol=1e-5) -> bool:
     return bool((np.abs(da - db) <= atol + rtol * np.maximum(db, 1.0)).all())
 
 
-def plan_line(p, dev) -> str:
-    """The NN sweep's launch plan as one phrase."""
+def plan_line(args, dev) -> str:
+    """The NN sweep's plan on ``args`` as one phrase: the mirror of the
+    plan the kernel makes on the device over the live source prefix."""
     import torch
 
     from rspc_tpu_torch import cuda_build
-    from rspc_tpu_torch.ops.nn import SRC_TILE
+    from rspc_tpu_torch.ops.nn import SRC_TILE, card_plan
 
+    rows = args[1].nonzero()
+    src_live = int(rows[-1, 0]) + 1 if rows.numel() else 0
+    p = card_plan(args[0].shape[0], dev, src_live)
     resident = cuda_build.nn_sweep_resident()
     slots = torch.cuda.get_device_properties(dev).multi_processor_count * resident
-    return (f"plan: {p.tiles} tiles of {SRC_TILE} sources x {p.splits} splits = "
-            f"{p.tiles * p.splits} blocks on {slots} resident slots ({resident} per SM)")
+    return (f"plan: {p.tiles} live tiles of {SRC_TILE} sources (src_live {src_live}) x "
+            f"{p.splits} splits = {p.tiles * p.splits} of {p.blocks} blocks on {slots} "
+            f"resident slots ({resident} per SM)")
 
 
 def nn_vs_plain(what, args, got, chunk):
@@ -415,22 +423,22 @@ def nn_vs_plain(what, args, got, chunk):
     return err
 
 
-def nn_kernel_only(args, p):
-    """The NN sweep's kernel alone (both passes, ``ops/nn.py::_launch``)
-    on ``args`` packed once by the wrappers' ``_pack``, on plan ``p``: a
-    closure for ``cuda_ms``. Bypasses the wrappers, so it counts no
-    launch."""
+def nn_kernel_only(args):
+    """The NN sweep's kernel alone (the key fill and both passes,
+    ``ops/nn.py::_launch``) on ``args`` packed once by the wrappers'
+    ``_pack``: a closure for ``cuda_ms``. Bypasses the wrappers, so it
+    counts no launch."""
     from rspc_tpu_torch.ops.nn import _launch, _pack
 
     packed = _pack(*args)
-    return lambda: _launch(*packed, p)
+    return lambda: _launch(*packed)
 
 
 def phase_nn(dev):
     import torch
 
     from rspc_tpu_torch import cuda_build
-    from rspc_tpu_torch.ops.nn import card_plan, nearest_neighbors, nearest_neighbors_cuda
+    from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_cuda
     from rspc_tpu_torch.ops.nn_check import adversarial_cases, run_nn_checks
 
     def on_card(s, sv, t, tv):
@@ -454,14 +462,13 @@ def phase_nn(dev):
     sv = rng.random(NN_SRC) < 0.95
     args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
     err = nn_vs_plain("B1 main shape", args, nearest_neighbors_cuda(*args), 4096)
-    plan = card_plan(NN_SRC, dev)
-    ms = cuda_ms(nn_kernel_only(args, plan), 50)
+    ms = cuda_ms(nn_kernel_only(args), 50)
     wrap_ms = cuda_ms(lambda: nearest_neighbors_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: nearest_neighbors(*args, chunk=4096), 5)
     lib_ms = cuda_ms(lambda: torch.cdist(args[0], args[2]).min(dim=1), 5)
     bnd = nn_bound(*args)
     log(f"B1 main shape {NN_SRC} x {NN_TGT_CAP} (live {NN_TGT_LIVE}), "
-        f"{plan_line(plan, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.4f} ms "
+        f"{plan_line(args, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.4f} ms "
         f"(wrapper with packing and re-score {wrap_ms:.3f} ms), "
         f"plain {plain_ms:.3f} ms, torch.cdist+min {lib_ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
@@ -473,13 +480,12 @@ def phase_nn(dev):
     a_tv = torch.ones(10240, dtype=torch.bool, device=dev)
     a_args = (a_src, a_sv, a_tgt, a_tv)
     a_err = nn_vs_plain("B1 anchor shape", a_args, nearest_neighbors_cuda(*a_args), 2048)
-    a_plan = card_plan(9 * 3414, dev)
-    a_ms = cuda_ms(nn_kernel_only(a_args, a_plan), 50)
+    a_ms = cuda_ms(nn_kernel_only(a_args), 50)
     a_wrap = cuda_ms(lambda: nearest_neighbors_cuda(*a_args), 20)
     a_plain = cuda_ms(lambda: nearest_neighbors(a_src, a_sv, a_tgt, a_tv, 2048), 5)
     a_lib = cuda_ms(lambda: torch.cdist(a_src, a_tgt).min(dim=1), 5)
     a_bnd = nn_bound(a_src, a_sv, a_tgt, a_tv)
-    log(f"B1 anchor shape {9 * 3414} x 10240, {plan_line(a_plan, dev)}: "
+    log(f"B1 anchor shape {9 * 3414} x 10240, {plan_line(a_args, dev)}: "
         f"max |dist2 kernel - plain| {a_err:.3e}; "
         f"kernel {a_ms:.4f} ms (wrapper {a_wrap:.3f} ms), plain {a_plain:.3f} ms, "
         f"torch.cdist+min {a_lib:.3f} ms, bound {a_bnd['bound_ms']:.4f} ms "
@@ -496,14 +502,13 @@ def phase_nn(dev):
     r_args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
     r_err = nn_vs_plain("B1 reference-preset shape", r_args,
                         nearest_neighbors_cuda(*r_args), 4096)
-    r_plan = card_plan(REF_SRC, dev)
-    r_ms = cuda_ms(nn_kernel_only(r_args, r_plan), 20)
+    r_ms = cuda_ms(nn_kernel_only(r_args), 20)
     r_wrap = cuda_ms(lambda: nearest_neighbors_cuda(*r_args), 10)
     r_plain = cuda_ms(lambda: nearest_neighbors(*r_args, chunk=4096), 2)
     r_lib = cuda_ms(lambda: torch.cdist(r_args[0], r_args[2]).min(dim=1), 2)
     r_bnd = nn_bound(*r_args)
     log(f"B1 reference-preset shape {REF_SRC} x {REF_TGT_CAP} (live {REF_TGT_LIVE}), "
-        f"{plan_line(r_plan, dev)}: max |dist2 kernel - plain| {r_err:.3e}; "
+        f"{plan_line(r_args, dev)}: max |dist2 kernel - plain| {r_err:.3e}; "
         f"kernel {r_ms:.4f} ms (wrapper {r_wrap:.3f} ms), plain {r_plain:.3f} ms, "
         f"torch.cdist+min {r_lib:.3f} ms, bound {r_bnd['bound_ms']:.4f} ms "
         f"({r_bnd['bound_by']})")
@@ -516,11 +521,7 @@ def phase_nn_stream(dev):
     import torch
 
     from rspc_tpu_torch import cuda_build
-    from rspc_tpu_torch.ops.nn import (
-        card_plan,
-        nearest_neighbors,
-        nearest_neighbors_stream_cuda,
-    )
+    from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_stream_cuda
     from rspc_tpu_torch.ops.nn_check import adversarial_cases, run_nn_checks
 
     def on_card(s, sv, t, tv):
@@ -563,19 +564,48 @@ def phase_nn_stream(dev):
     sv = rng.random(INC_SRC) < 0.95
     args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
     err = nn_vs_plain("B2 last-pair shape", args, nearest_neighbors_stream_cuda(*args), 4096)
-    plan = card_plan(INC_SRC, dev)
-    ms = cuda_ms(nn_kernel_only(args, plan), 10)
+    ms = cuda_ms(nn_kernel_only(args), 10)
     wrap_ms = cuda_ms(lambda: nearest_neighbors_stream_cuda(*args), 10)
     plain_ms = cuda_ms(lambda: nearest_neighbors(*args, chunk=4096), 1)
     bnd = nn_bound(*args)
     log(f"B2 last-pair shape {INC_SRC} x {INC_TGT_CAP} (live {INC_TGT_LIVE}), "
-        f"{plan_line(plan, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.3f} ms "
+        f"{plan_line(args, dev)}: max |dist2 kernel - plain| {err:.3e}; kernel {ms:.3f} ms "
         f"(wrapper {wrap_ms:.3f} ms), plain {plain_ms:.3f} ms, "
         f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
         f"no library call (a {INC_SRC} x {INC_TGT_LIVE} distance matrix is "
         f"{INC_SRC * INC_TGT_LIVE * 4 / 1e9:.0f} GB)")
-    return {"max_abs_err": err, "ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
-            **bnd, "library_ms": None}
+    cell = nn_cell_shape(dev, tgt, tv, rng)
+    return {"max_abs_err": max(err, cell["err"]), "ms": ms, "wrapper_ms": wrap_ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": None, "ms_cell_shape": cell["ms"],
+            "bound_ms_cell_shape": cell["bound_ms"]}
+
+
+def nn_cell_shape(dev, tgt, tv, rng):
+    """B2 at the incremental cells' shape: ``CELL_SRC`` voxel slots whose
+    first ``CELL_SRC_LIVE`` are valid against the 10-frame map (``tgt``,
+    ``tv``: 3,072,000 rows, 2,764,800 live), against the plain sweep."""
+    import torch
+
+    from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_stream_cuda
+
+    live = np.flatnonzero(tv)
+    src = np.zeros((CELL_SRC, 3), np.float32)
+    src[:CELL_SRC_LIVE] = (tgt[rng.choice(live, CELL_SRC_LIVE)]
+                           + rng.normal(0, 0.01, (CELL_SRC_LIVE, 3))).astype(np.float32)
+    sv = np.zeros(CELL_SRC, bool)
+    sv[:CELL_SRC_LIVE] = True
+    args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
+    t0 = time.perf_counter()
+    err = nn_vs_plain("B2 cell shape", args, nearest_neighbors_stream_cuda(*args), 4096)
+    plain_s = time.perf_counter() - t0
+    ms = cuda_ms(nn_kernel_only(args), 3)
+    bnd = nn_bound(*args)
+    log(f"B2 cell shape {CELL_SRC} ({CELL_SRC_LIVE} valid) x {tgt.shape[0]} "
+        f"({int(tv.sum())} valid), {plan_line(args, dev)}: max |dist2 kernel - plain| "
+        f"{err:.3e}; kernel {ms:.3f} ms, plain with the kernel's run {plain_s:.1f} s, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+        f"{100 * bnd['bound_ms'] / ms:.1f}%)")
+    return {"err": err, "ms": ms, **bnd}
 
 
 def edge_masks(clouds):
@@ -1323,7 +1353,7 @@ def robust_nn_shapes(dev, map_scheme, graph_scheme):
     by their totals; each timed with its bound and ``torch.cdist``."""
     import torch
 
-    from rspc_tpu_torch.ops.nn import card_plan, nearest_neighbors, nearest_neighbors_cuda
+    from rspc_tpu_torch.ops.nn import nearest_neighbors, nearest_neighbors_cuda
     from rspc_tpu_torch.ops.transform import apply_transform
 
     out = {}
@@ -1346,14 +1376,13 @@ def robust_nn_shapes(dev, map_scheme, graph_scheme):
     for name, (*args, chunk) in shapes.items():
         args = [a.contiguous() for a in args]
         err = nn_vs_plain(f"B1 {name} shape", args, nearest_neighbors_cuda(*args), chunk)
-        plan = card_plan(args[0].shape[0], dev)
-        ms = cuda_ms(nn_kernel_only(args, plan), 50)
+        ms = cuda_ms(nn_kernel_only(args), 50)
         wrap = cuda_ms(lambda: nearest_neighbors_cuda(*args), 20)
         plain = cuda_ms(lambda: nearest_neighbors(*args, chunk=chunk), 3)
         lib = cuda_ms(lambda: torch.cdist(args[0], args[2]).min(dim=1), 3)
         bnd = nn_bound(*args)
         log(f"B1 {name} shape {args[0].shape[0]} ({int(args[1].sum())} valid) x "
-            f"{args[2].shape[0]} ({int(args[3].sum())} valid), {plan_line(plan, dev)}: "
+            f"{args[2].shape[0]} ({int(args[3].sum())} valid), {plan_line(args, dev)}: "
             f"max |dist2 kernel - plain| {err:.3e}; kernel {ms:.4f} ms (wrapper {wrap:.3f} ms), "
             f"plain {plain:.3f} ms, torch.cdist+min {lib:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
             f"({bnd['bound_by']}, {100 * bnd['bound_ms'] / ms:.1f}%)")

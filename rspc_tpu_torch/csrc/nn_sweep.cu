@@ -9,8 +9,9 @@
 // is the TPU wrapper's: sources recentred on the valid-target centroid
 // as float4 (x, y, z, unused); targets recentred with invalid rows zeroed
 // as float4 (x, y, z, |t|^2 + penalty), the penalty 1e30 for invalid
-// rows; live_hi, the highest valid target index + 1, reduced on the
-// device (no host sync) and read here from device memory.
+// rows. Two live bounds are reduced on the device (no host sync) and read
+// here from device memory: live_hi, the highest valid target index + 1,
+// and src_live, the highest valid source index + 1.
 //
 // What bounds it on the card: FP32 issue. Every (source, live target)
 // pair costs 4 FMA-class operations for the score |t|^2 + pen - 2 s.t
@@ -36,7 +37,7 @@
 //    16 were slower on one path or both) that is about 5.3 issue slots
 //    per pair: the five above, 1/6 of an LDS, and the run bookkeeping
 //    every 32 targets. __launch_bounds__ asks for 6 resident blocks per
-//    SM: ptxas then takes 80 registers (no spills); left to itself it
+//    SM: ptxas then takes 79-80 registers (no spills); left to itself it
 //    took 72, which fits 7 blocks, and the sweep ran 14-22% slower on
 //    the card at the three main-path shapes.
 // 2. Asynchronous staging. The block's target share streams through a
@@ -49,21 +50,34 @@
 //    copy instructions and no block-wide barrier per tile. float4 rows
 //    keep every copy 16-byte aligned at any share boundary; the ragged
 //    last tile is a shorter copy.
-// 3. A grid that fills the card. The wrapper's plan (ops/nn.py::plan)
-//    launches one block per (source tile, target split) item, block b
-//    taking tile b % tiles and split b / tiles, with as many splits as
-//    the card's resident slots hold (SMs x the resident blocks per SM
-//    that rspc_nn_sweep_occupancy reports): one wave that leaves fewer
-//    than `tiles` slots idle. Every block reads live_hi and takes its
-//    split's even, contiguous share of the LIVE prefix (shares ascend
-//    with the split), so the early pairs of a chain fill the card too and
-//    nothing syncs with the host. A grid beyond the slots runs in waves.
-// 4. Pass 2 takes, per source, the lexicographic minimum of the
-//    partial (score, index) over splits: the smaller score, then the
-//    lower index, which is the lower split. kReduceWays threads reduce
-//    interleaved splits of one source side by side (the loads of a warp
-//    are 32 consecutive sources), then combine in shared memory. With
-//    one split, pass 1 writes the result itself and pass 2 does not run.
+// 3. A plan made on the device, over the live source prefix. The host
+//    launches max(slots, tiles(n)) blocks, slots being the card's
+//    resident slots (SMs x the resident blocks per SM that
+//    rspc_nn_sweep_occupancy reports). Every block reads src_live and
+//    live_hi and makes the plan ops/nn.py::plan mirrors: live_tiles =
+//    ceil(src_live / kSrcTile) source tiles, splits = clamp(slots /
+//    live_tiles, 1, max_splits) target splits, block b taking tile
+//    b % live_tiles and split b / live_tiles; blocks past live_tiles x
+//    splits exit at once. So dead source slots (a suffix, as the voxel
+//    grid leaves them) are never swept, and the splits grow to fill the
+//    slots the dead tiles would have held. Each split takes an even,
+//    contiguous share of the LIVE target prefix (shares ascend with the
+//    split), so the early pairs of a chain fill the card too and nothing
+//    syncs with the host. Where the live tiles outnumber the slots, one
+//    split runs in waves. With src_live == n the plan is the one the
+//    host made before the plan moved here.
+// 4. Splits combine without per-split scratch: the number of splits is
+//    known only here, so each source's (score, index) is packed into one
+//    uint64 key (pack_key: the score's bits made order-preserving, -0.0
+//    as +0.0, above the index) and combined with atomicMin into one
+//    uint64[n], which rspc_nn_sweep first fills with the all-ones
+//    sentinel. The unsigned order of the keys is the lexicographic order
+//    of (score, index): the smaller score, then the lower index (the
+//    lower split; a partial of score +inf always carries index 0). Pass 2 decodes each key into
+//    best_score and best_idx; a row at or past src_live still holds the
+//    sentinel and decodes to (+inf, 0), the plain sweep's answer for an
+//    invalid source. While the tracer records, block 0 also adds src_live
+//    to a device counter (the rows the sweep covers).
 //
 // The per-pair arithmetic, cross = fmaf(sz, tz, fmaf(sy, ty, sx * tx))
 // and score = t.w - 2 cross (see pair_score), and the tie rule are those
@@ -83,8 +97,8 @@ constexpr int kMinBlocks = 6;  // resident blocks per SM asked of ptxas
 constexpr int kTile = 512;  // targets per staged tile (8 KB)
 constexpr int kStages = 3;
 constexpr int kCheck = 32;  // targets per run
-constexpr int kReduceSrc = 32;   // pass 2: sources per block (one warp wide)
-constexpr int kReduceWays = 8;   // pass 2: splits reduced side by side
+constexpr int kDecode = 256;  // pass 2: sources per block
+constexpr unsigned long long kSentinel = ~0ULL;  // no split wrote the row
 static_assert(kTile % kCheck == 0, "a run never crosses a tile");
 
 // |t|^2 + pen - 2 s.t. Written as one FFMA: 2 cross is exact, so this is
@@ -194,14 +208,33 @@ __device__ __forceinline__ int first_match(const float4* t, int count,
   return found;
 }
 
+// (score, index) as one key whose unsigned order is the lexicographic
+// order of the pair: the smaller score, then the lower index; -0.0 keys
+// as +0.0
+__device__ __forceinline__ unsigned long long pack_key(float score, int idx) {
+  uint32_t b = __float_as_uint(score);
+  if (b == 0x80000000u) b = 0u;
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (uint32_t)idx;
+}
+
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 nn_sweep_pass1(const float4* __restrict__ src, const float4* __restrict__ tgt,
-               const int* __restrict__ live_hi, int n, int splits,
-               float* __restrict__ part_score, int* __restrict__ part_idx) {
+               const int* __restrict__ src_live_p, const int* __restrict__ live_hi,
+               int slots, int max_splits, unsigned long long* __restrict__ keys,
+               unsigned long long* __restrict__ rows) {
   __shared__ __align__(128) float4 ring[kStages][kTile];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
   const int tid = threadIdx.x;
+  const int src_live = *src_live_p;
+  if (rows != nullptr && blockIdx.x == 0 && tid == 0)
+    atomicAdd(rows, (unsigned long long)src_live);
+  // the plan over the live source prefix (ops/nn.py::plan); the product
+  // is at most max(slots, tiles), so it cannot overflow
+  const int tiles = (src_live + kSrcTile - 1) / kSrcTile;
+  const int splits = max(1, min(max_splits, slots / max(tiles, 1)));
+  if ((int)blockIdx.x >= tiles * splits) return;  // the whole block
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) {
       bar_init(&full[st], 1);
@@ -214,7 +247,6 @@ nn_sweep_pass1(const float4* __restrict__ src, const float4* __restrict__ tgt,
   const int live = *live_hi;
   // even share of the live prefix, contiguous and ascending with the split
   const int share = live / splits + (live % splits != 0);
-  const int tiles = (n + kSrcTile - 1) / kSrcTile;
   const int tile = blockIdx.x % tiles;
   const int split = blockIdx.x / tiles;
   const int lo = (int)min((long long)live, (long long)split * share);
@@ -227,7 +259,7 @@ nn_sweep_pass1(const float4* __restrict__ src, const float4* __restrict__ tgt,
 #pragma unroll
   for (int j = 0; j < kSrcPerThread; ++j) {
     const int i = tile * kSrcTile + j * kThreads + tid;
-    const float4 p = i < n ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 p = i < src_live ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
     sx[j] = p.x;
     sy[j] = p.y;
     sz[j] = p.z;
@@ -282,73 +314,56 @@ nn_sweep_pass1(const float4* __restrict__ src, const float4* __restrict__ tgt,
       }
     }
     const int i = tile * kSrcTile + j * kThreads + tid;
-    if (i < n) {
-      part_score[(size_t)split * n + i] = m[j];
-      part_idx[(size_t)split * n + i] = k < 0 ? 0 : k;
-    }
+    if (i < src_live) atomicMin(&keys[i], pack_key(m[j], k < 0 ? 0 : k));
   }
 }
 
-// the lexicographic minimum of (score, index): a tie keeps the lower
-// index, which is the lower split (shares ascend with the split; a
-// partial of score +inf always carries index 0)
-__device__ __forceinline__ void keep_min(float& best, int& bi, float v, int k) {
-  if (v < best || (v == best && k < bi)) {
-    best = v;
-    bi = k;
-  }
-}
-
-__global__ void __launch_bounds__(kReduceSrc * kReduceWays)
-nn_sweep_pass2(const float* __restrict__ part_score,
-               const int* __restrict__ part_idx, int n, int splits,
+// each source's key decoded into (best score, best index); the sentinel
+// (a row past src_live) decodes to (+inf, 0)
+__global__ void __launch_bounds__(kDecode)
+nn_sweep_pass2(const unsigned long long* __restrict__ keys, int n,
                float* __restrict__ best_score, int* __restrict__ best_idx) {
-  __shared__ float s_score[kReduceWays][kReduceSrc];
-  __shared__ int s_idx[kReduceWays][kReduceSrc];
-  const int x = threadIdx.x, y = threadIdx.y;
-  const int i = blockIdx.x * kReduceSrc + x;
-  float best = INFINITY;
-  int bi = 0;
-  if (i < n) {
-#pragma unroll 4
-    for (int sp = y; sp < splits; sp += kReduceWays)
-      keep_min(best, bi, part_score[(size_t)sp * n + i], part_idx[(size_t)sp * n + i]);
+  const int i = blockIdx.x * kDecode + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long key = keys[i];
+  float score = INFINITY;
+  int idx = 0;
+  if (key != kSentinel) {
+    const uint32_t b = (uint32_t)(key >> 32);
+    score = __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+    idx = (int)(uint32_t)key;
   }
-  s_score[y][x] = best;
-  s_idx[y][x] = bi;
-  __syncthreads();
-  if (y == 0 && i < n) {
-    for (int w = 1; w < kReduceWays; ++w) keep_min(best, bi, s_score[w][x], s_idx[w][x]);
-    best_score[i] = best;
-    best_idx[i] = bi;
-  }
+  best_score[i] = score;
+  best_idx[i] = idx;
 }
 
 }  // namespace
 
-// src4: float4[n]; tgt4: float4[m]; live_hi: int[1] (<= m); splits >= 1
-// target splits (ops/nn.py::plan), one block of pass 1 per (source
-// tile, split); scratch part_score float[splits * n] and part_idx
-// int[splits * n] (unused when splits == 1); outputs best_score float[n],
-// best_idx int[n]. All on the current device. Launches on `stream`;
-// allocates nothing.
+// src4: float4[n]; tgt4: float4[m]; src_live: int[1] (<= n); live_hi:
+// int[1] (<= m); slots: the card's resident slots of pass 1; max_splits
+// >= 1 caps the device plan's target splits (ops/nn.py::plan); scratch
+// keys uint64[n]; rows: a uint64[1] counter that src_live is added to,
+// or null; outputs best_score float[n], best_idx int[n]. All on the
+// current device. Launches on `stream`; allocates nothing.
 extern "C" int rspc_nn_sweep(const void* src4, const void* tgt4,
-                             const void* live_hi, int n, int splits,
-                             void* part_score, void* part_idx,
+                             const void* src_live, const void* live_hi, int n,
+                             int slots, int max_splits, void* keys, void* rows,
                              void* best_score, void* best_idx, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (long long)((n + kSrcTile - 1) / kSrcTile) * splits;
-  if (splits < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (slots < 1 || max_splits < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (int)(((long long)n + kSrcTile - 1) / kSrcTile);
+  const int blocks = tiles > slots ? tiles : slots;
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool one = splits == 1;
+  cudaError_t err = cudaMemsetAsync(keys, 0xff, (size_t)n * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
   nn_sweep_pass1<<<(unsigned)blocks, kThreads, 0, st>>>(
-      (const float4*)src4, (const float4*)tgt4, (const int*)live_hi, n, splits,
-      (float*)(one ? best_score : part_score), (int*)(one ? best_idx : part_idx));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || one) return (int)err;
-  nn_sweep_pass2<<<(n + kReduceSrc - 1) / kReduceSrc, dim3(kReduceSrc, kReduceWays),
-                   0, st>>>((const float*)part_score, (const int*)part_idx, n,
-                            splits, (float*)best_score, (int*)best_idx);
+      (const float4*)src4, (const float4*)tgt4, (const int*)src_live,
+      (const int*)live_hi, slots, max_splits, (unsigned long long*)keys,
+      (unsigned long long*)rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nn_sweep_pass2<<<(unsigned)((n + kDecode - 1) / kDecode), kDecode, 0, st>>>(
+      (const unsigned long long*)keys, n, (float*)best_score, (int*)best_idx);
   return (int)cudaGetLastError();
 }
 

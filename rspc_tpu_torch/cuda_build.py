@@ -39,9 +39,9 @@ PLAIN_ON_CUDA = {"nn_sweep": 0, "nn_sweep_split": 0, "hysteresis": 0}
 # (cudaError_t).
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # src4, tgt4, live_hi, n, splits, part_score, part_idx, best_score,
-    # best_idx, stream
-    "rspc_nn_sweep": (_VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP),
+    # src4, tgt4, src_live, live_hi, n, slots, max_splits, keys, rows,
+    # best_score, best_idx, stream
+    "rspc_nn_sweep": (_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP),
     # resident blocks of the NN sweep's pass 1 per SM -> int*
     "rspc_nn_sweep_occupancy": (_VP,),
     # strong, weak, scratch, out, frames, h, w, tiles_y, tiles_x, stream

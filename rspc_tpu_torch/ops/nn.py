@@ -13,10 +13,11 @@ re-score each winner exactly as ``|s - t_win|^2``.
     index within a chunk, strict ``<`` across chunks);
   * :func:`nearest_neighbors_cuda` and :func:`nearest_neighbors_stream_cuda`
     -- the routes of the TPU kernels B1 (``_nn_kernel``) and B2
-    (``_nn_kernel_hbm``): one CUDA kernel (``csrc/nn_sweep.cu``), the
-    live target split across a grid that fills the card, launched by
-    :func:`_sweep_cuda` on :func:`plan`; the routes share the kernel and
-    the plan, and count their launches apart;
+    (``_nn_kernel_hbm``): one CUDA kernel (``csrc/nn_sweep.cu``) that
+    plans its grid on the device over the live source prefix and splits
+    the live target across the card's resident slots (:func:`plan`
+    mirrors it), launched by :func:`_sweep_cuda`; the routes share the
+    kernel and the plan, and count their launches apart;
   * :func:`nn_sweep` -- the dispatch: CUDA tensors take B2's route when
     the static target capacity, padded up to a multiple of
     ``TGT_CHUNK``, exceeds ``STREAM_TARGET`` (:func:`streams`, the JAX
@@ -37,6 +38,7 @@ bit.
 from __future__ import annotations
 
 import functools
+import struct
 from typing import NamedTuple
 
 import torch
@@ -58,15 +60,22 @@ STREAM_TARGET = 2_500_000
 TGT_CHUNK = 1024
 
 # the kernel's sources per block (csrc/nn_sweep.cu kSrcTile: 128 threads
-# x 6 sources), and the split cap (it bounds the [splits, n] scratch)
+# x 6 sources), and the split cap
 SRC_TILE = 768
 MAX_SPLITS = 1024
+# the split cap handed to each launch (read at call time): a test lowers
+# it to force a split count on the device's plan
+SPLIT_CAP = MAX_SPLITS
+# the kernel's key of a source no split wrote (a row past the live bound)
+KEY_SENTINEL = 2**64 - 1
 
 
 class SweepPlan(NamedTuple):
-    """A launch of the NN sweep: ``tiles`` source tiles of ``SRC_TILE``
-    x ``splits`` target splits, one block of pass 1 each."""
+    """The NN sweep's plan: ``blocks`` launched, of which the first
+    ``tiles x splits`` each sweep one (source tile of ``SRC_TILE``,
+    target split) item and the rest exit at once."""
 
+    blocks: int
     tiles: int
     splits: int
 
@@ -103,14 +112,13 @@ def _rescore(src_xyz, src_valid, tgt_xyz, tgt_valid, best_score, best_idx, ok):
 
 def _plain_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int, centroid=None):
     """The plain sweep's (best score, best index) per source, before the
-    re-score (an invalid source: score inf, index 0). Counts and traces
-    the source rows it is handed, as the kernels' launch does, though it
-    sweeps only the valid ones."""
+    re-score (an invalid source: score inf, index 0). Traces the sweep
+    as the kernels' launch does; counts the valid source rows it sweeps
+    (``nn.source_rows``)."""
     if src_xyz.is_cuda:
         cuda_build.PLAIN_ON_CUDA["nn_sweep"] += 1
-    n = src_xyz.shape[0]
-    profiling.count("nn.source_rows", n)
-    with profiling.span("nn.sweep", route="plain", sources=n, targets=tgt_xyz.shape[0]):
+    with profiling.span("nn.sweep", route="plain", sources=src_xyz.shape[0],
+                        targets=tgt_xyz.shape[0]):
         return _plain_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk, centroid)
 
 
@@ -120,6 +128,7 @@ def _plain_sweep(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int, centroid):
     live = int(rows[-1, 0]) + 1 if rows.numel() else 0
     s, t = _recentre(src_xyz, tgt_xyz, tgt_valid, centroid)
     keep = src_valid.nonzero()[:, 0]
+    profiling.count("nn.source_rows", keep.shape[0])
     s = s.index_select(0, keep)
     best_score = torch.full((keep.shape[0],), float("inf"), device=s.device)
     best_idx = torch.zeros((keep.shape[0],), dtype=torch.int32, device=s.device)
@@ -151,9 +160,10 @@ def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid=None):
     """The kernels' shared pre-processing: check the inputs, recentre on
     the valid-target centroid (or ``centroid``), pack the target as
     float4 (x, y, z, |t|^2 + penalty) with the 1e30 penalty on invalid
-    rows and the sources as float4 (x, y, z, 0), and reduce the live
-    bound (highest valid index + 1) on the device, so nothing syncs with
-    the host."""
+    rows and the sources as float4 (x, y, z, 0), and reduce the two live
+    bounds (highest valid index + 1) on the device, ``src_live`` of the
+    sources and ``live_hi`` of the target, so nothing syncs with the
+    host."""
     # the kernels read only the packed copies made here, so the inputs
     # need not be contiguous
     src_xyz, src_valid, tgt_xyz, tgt_valid = (
@@ -171,24 +181,34 @@ def _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid=None):
     norm_pen = (t * t).sum(dim=-1) + torch.where(tgt_valid, 0.0, PENALTY)
     tgt4 = torch.cat([t, norm_pen[:, None]], dim=1).contiguous()
     src4 = torch.nn.functional.pad(s, (0, 1)).contiguous()
-    ramp = torch.arange(1, m + 1, dtype=torch.int32, device=t.device)
-    live_hi = torch.where(tgt_valid, ramp, 0).amax().reshape(1).contiguous()
+    ramp = torch.arange(1, max(n, m) + 1, dtype=torch.int32, device=t.device)
+    live_hi = torch.where(tgt_valid, ramp[:m], 0).amax().reshape(1)
+    src_live = (torch.where(src_valid, ramp[:n], 0).amax().reshape(1) if n
+                else torch.zeros(1, dtype=torch.int32, device=t.device))
     best_score = torch.empty((n,), dtype=torch.float32, device=s.device)
     best_idx = torch.empty((n,), dtype=torch.int32, device=s.device)
-    return src4, tgt4, live_hi, best_score, best_idx
+    return src4, tgt4, src_live, live_hi, best_score, best_idx
 
 
-def plan(n: int, sms: int, resident: int) -> SweepPlan:
-    """The NN sweep's launch plan for ``n`` sources on a card of ``sms``
-    SMs that holds ``resident`` blocks of the sweep per SM: as many target
-    splits as the ``sms * resident`` resident slots hold with one block
-    per (source tile, split), at least 1 and at most ``MAX_SPLITS``. So
-    the grid is one wave that leaves fewer than ``tiles`` slots idle
-    (where there are more tiles than slots, one split runs in waves).
-    Static: the source count and the card alone decide (never the live
-    prefix, which only the device knows)."""
-    tiles = -(-n // SRC_TILE)
-    return SweepPlan(tiles, max(1, min(MAX_SPLITS, sms * resident // tiles)))
+def plan(n: int, sms: int, resident: int, src_live: int | None = None,
+         cap: int = MAX_SPLITS) -> SweepPlan:
+    """The NN sweep's plan for ``n`` source rows whose valid rows end
+    before ``src_live`` (default ``n``), on a card of ``sms`` SMs that
+    holds ``resident`` blocks of the sweep per SM: the mirror of the plan
+    each block of the kernel makes on the device. The host launches
+    ``max(slots, tiles(n))`` blocks, ``slots = sms * resident``; the live
+    tiles ``ceil(src_live / SRC_TILE)`` each take as many target splits
+    as the slots hold, at least 1 and at most ``cap``, block ``b`` taking
+    tile ``b % tiles`` and split ``b // tiles``; the blocks past ``tiles
+    x splits`` exit. So the items fill one wave of the slots but for
+    fewer than ``tiles`` of them (where the live tiles outnumber the
+    slots, one split runs in waves). With ``src_live == n`` the plan is
+    the one the host made before the plan moved to the device."""
+    slots = sms * resident
+    live = n if src_live is None else src_live
+    tiles = -(-live // SRC_TILE)
+    return SweepPlan(max(slots, -(-n // SRC_TILE)), tiles,
+                     max(1, min(cap, slots // max(tiles, 1))))
 
 
 def share_bounds(live: int, splits: int) -> list[tuple[int, int]]:
@@ -202,47 +222,73 @@ def share_bounds(live: int, splits: int) -> list[tuple[int, int]]:
     return out
 
 
+def pack_key(score: float, idx: int) -> int:
+    """The kernel's key of a source's (score, index) (``csrc/nn_sweep.cu``
+    ``pack_key``): the f32 score's bits made order-preserving, -0.0 as
+    +0.0, above the index, so that the keys' unsigned order is the
+    lexicographic order of (score, index) that combines the splits."""
+    b = struct.unpack("<I", struct.pack("<f", score))[0]
+    if b == 0x8000_0000:
+        b = 0
+    b = (~b & 0xFFFF_FFFF) if b & 0x8000_0000 else b | 0x8000_0000
+    return (b << 32) | (idx & 0xFFFF_FFFF)
+
+
+def unpack_key(key: int) -> tuple[float, int]:
+    """The kernel's pass 2: a key back to (score, index); the sentinel
+    ``KEY_SENTINEL`` (no split wrote the row) gives (+inf, 0)."""
+    if key == KEY_SENTINEL:
+        return float("inf"), 0
+    b = key >> 32
+    b = b & 0x7FFF_FFFF if b & 0x8000_0000 else ~b & 0xFFFF_FFFF
+    return struct.unpack("<f", struct.pack("<I", b))[0], key & 0xFFFF_FFFF
+
+
 @functools.lru_cache(maxsize=None)
 def _card_slots(device_index: int) -> tuple[int, int]:
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return sms, cuda_build.nn_sweep_resident()
 
 
-def card_plan(n: int, device) -> SweepPlan:
+def card_plan(n: int, device, src_live: int | None = None) -> SweepPlan:
     """:func:`plan` for this card (its SM count and the kernel's resident
-    blocks per SM, queried once)."""
-    return plan(n, *_card_slots(torch.device(device).index or 0))
+    blocks per SM, queried once) under ``SPLIT_CAP``; ``src_live`` is
+    the device's bound, which only a caller that reads it back knows."""
+    return plan(n, *_card_slots(torch.device(device).index or 0), src_live, SPLIT_CAP)
 
 
-def _launch(src4, tgt4, live_hi, best_score, best_idx, p: SweepPlan) -> None:
-    """The kernel of ``csrc/nn_sweep.cu`` (both passes) on :func:`_pack`'s
-    outputs and plan ``p``, with its ``[splits, n]`` scratch allocated
-    here. Counts no launch: the wrappers do."""
+def _launch(src4, tgt4, src_live, live_hi, best_score, best_idx, rows=None) -> None:
+    """The kernel of ``csrc/nn_sweep.cu`` (the key fill and both passes)
+    on :func:`_pack`'s outputs, with the card's resident slots and
+    ``SPLIT_CAP``, and its ``uint64[n]`` keys allocated here; ``rows``,
+    where given, is the int64 counter the kernel adds ``src_live`` to.
+    Counts no launch: the wrappers do."""
     n = src4.shape[0]
-    part_score = torch.empty((p.splits, n), dtype=torch.float32, device=src4.device)
-    part_idx = torch.empty((p.splits, n), dtype=torch.int32, device=src4.device)
+    sms, resident = _card_slots(src4.device.index or 0)
+    keys = torch.empty((n,), dtype=torch.int64, device=src4.device)
     code = cuda_build.library().rspc_nn_sweep(
-        src4.data_ptr(), tgt4.data_ptr(), live_hi.data_ptr(), n, p.splits,
-        part_score.data_ptr(), part_idx.data_ptr(), best_score.data_ptr(),
+        src4.data_ptr(), tgt4.data_ptr(), src_live.data_ptr(), live_hi.data_ptr(), n,
+        sms * resident, SPLIT_CAP, keys.data_ptr(),
+        None if rows is None else rows.data_ptr(), best_score.data_ptr(),
         best_idx.data_ptr(), cuda_build.stream_of(src4),
     )
     cuda_build.check(code, "rspc_nn_sweep")
 
 
 def _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str, centroid=None):
-    """Both routes' launch: :func:`_pack`, :func:`_launch` on
-    :func:`card_plan`; the kernel's (best score, best index) per source.
-    ``route`` names the launch count. Counts the source rows handed to
-    the kernel (``nn.source_rows``, valid or not) and traces the launch
-    as the span ``nn.sweep``."""
+    """Both routes' launch: :func:`_pack`, then :func:`_launch`; the
+    kernel's (best score, best index) per source, (+inf, 0) at and past
+    the live source bound. ``route`` names the launch count. Traces the
+    launch as the span ``nn.sweep``; while the tracer records, the kernel
+    counts the source rows it covers (``src_live``) into the call's
+    device counter ``nn.source_rows``."""
     n, m = src_xyz.shape[0], tgt_xyz.shape[0]
-    profiling.count("nn.source_rows", n)
     with profiling.span("nn.sweep", route=route, sources=n, targets=m):
         packed = _pack(src_xyz, src_valid, tgt_xyz, tgt_valid, centroid)
         if n:
-            _launch(*packed, card_plan(n, packed[0].device))
+            _launch(*packed, profiling.device_count("nn.source_rows", src_xyz.device))
             cuda_build.LAUNCHES[route] += 1
-    return packed[3], packed[4]
+    return packed[4], packed[5]
 
 
 def _sweep_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid, route: str):
@@ -257,13 +303,14 @@ def nearest_neighbors_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid):
     """The route of TPU kernel B1, ``rspc_tpu/ops/nn_pallas.py::_nn_kernel``
     (targets up to ``STREAM_TARGET``): the kernel of ``csrc/nn_sweep.cu``
     with the TPU wrapper's pre- and post-processing kept as they were, on
-    :func:`card_plan`.
+    the plan the kernel makes on the device (:func:`plan`).
 
     Pre (:func:`_pack`): recentre on the valid-target centroid; pack the
     target as (x, y, z, |t|^2 + penalty) with the 1e30 penalty on invalid
-    rows; the live bound (highest valid index + 1) is reduced on the
-    device and the kernel reads it from device memory, so nothing syncs
-    with the host.
+    rows; the live bounds of the sources and of the target (highest valid
+    index + 1) are reduced on the device and the kernel reads them from
+    device memory, so nothing syncs with the host: it sweeps only the
+    live source prefix against the live target prefix.
     Post: exact re-score of each winner; a winner whose score is not
     below 1e29 (only penalised rows) or a source with no valid target
     reports inf.
@@ -298,7 +345,9 @@ def nn_scores(src_xyz, src_valid, tgt_xyz, tgt_valid, chunk: int = 2048, centroi
     valid-target centroid). The score is ``|t|^2 - 2 s.t`` in recentred
     coordinates, plus the kernels' 1e30 penalty on invalid targets (the
     plain sweep: inf); a winner scoring 1e29 or more found no valid
-    target."""
+    target. An invalid source scores inf with index 0 in the plain sweep
+    and on the card at and past the live source bound; the kernels sweep
+    the invalid sources before it."""
     if src_xyz.is_cuda:
         return _scores_cuda(src_xyz, src_valid, tgt_xyz, tgt_valid,
                             _route(tgt_xyz.shape[0]), centroid)

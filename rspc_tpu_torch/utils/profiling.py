@@ -16,6 +16,13 @@ The reference has no tracing, only ``[RS]``/``[PCL]`` progress lines
     the device. It always adds ``syncs`` to ``COUNTS["sync.<site>"]``;
     recording, it is also a span of kind ``wait`` named ``wait.<site>``;
   * ``count(name, n)`` adds ``n`` to ``COUNTS[name]``;
+  * ``device_count(name, device)``, inside a recording call, hands a
+    kernel an int64 counter on the device to add a count that only the
+    device knows (the NN sweep's live source rows): one per call and
+    name, allocated at its first use in the call (one fill on the
+    device). ``collect()`` reads it after the window into the call's
+    ``counts`` and ``COUNTS``; elsewhere it is None and the kernel adds
+    nothing;
   * ``enable()`` clears the spans and ``COUNTS`` and records until
     ``disable()``; ``collect()`` hands out what was recorded;
   * ``trace(logdir)`` records a ``torch.profiler`` trace (host and CUDA
@@ -29,9 +36,12 @@ and mapped onto that clock by one ``(perf_counter_ns, time_ns)`` pair taken
 when recording starts: ``torch.profiler``'s event times are Unix-epoch
 nanoseconds, with the card's events converted to them, so a span and a
 device interval compare directly. A root span also carries, as its
-attribute ``counts``, what its call added to ``COUNTS``. Nothing is written
-while the program runs, and the tracer adds no device work and no sync: it
-reads only values the host holds.
+attribute ``counts``, what its call added to ``COUNTS``, device counters
+included once ``collect()`` has read them. Nothing is written while the
+program runs, and the tracer adds no sync: it reads the values the host
+holds, and the device counters only in ``collect()``, after the window.
+Its one device work is a recording call's fill of each device counter it
+uses.
 """
 
 from __future__ import annotations
@@ -54,6 +64,9 @@ _NULL = contextlib.nullcontext()
 _ON = False  # recording
 _SPANS: list[dict] = []
 _OPEN: list["_Span"] = []
+# the device counters of ended calls not yet read: (the root span's
+# record, name, tensor)
+_PENDING: list[tuple[dict, str, torch.Tensor]] = []
 _IDS = [0, 0]  # the last span id and call id given
 _OFFSET = 0  # profiler-clock ns less perf_counter ns
 # the Chrome trace's thread of the spans: an id no thread of the process has
@@ -68,7 +81,8 @@ def _start_clock() -> None:
 class _Span:
     """A recording span: ``follow`` turns recording on for its length."""
 
-    __slots__ = ("name", "kind", "attrs", "follow", "id", "parent", "call", "counts", "t0")
+    __slots__ = ("name", "kind", "attrs", "follow", "id", "parent", "call", "counts",
+                 "device", "t0")
 
     def __init__(self, name: str, kind: str, attrs: dict, follow: bool = False):
         self.name, self.kind, self.attrs, self.follow = name, kind, attrs, follow
@@ -84,6 +98,7 @@ class _Span:
         if parent is None:
             _IDS[1] += 1
             self.parent, self.call, self.counts = None, _IDS[1], dict(COUNTS)
+            self.device = {}
         else:
             self.parent, self.call, self.counts = parent.id, parent.call, None
         _OPEN.append(self)
@@ -99,9 +114,12 @@ class _Span:
             before = self.counts
             attrs = {**attrs, "counts": {k: v - before.get(k, 0) for k, v in COUNTS.items()
                                          if v != before.get(k, 0)}}
-        _SPANS.append({"name": self.name, "kind": self.kind, "id": self.id,
-                       "parent": self.parent, "call": self.call, "attrs": attrs,
-                       "start_ns": self.t0 + _OFFSET, "end_ns": t1 + _OFFSET})
+        record = {"name": self.name, "kind": self.kind, "id": self.id,
+                  "parent": self.parent, "call": self.call, "attrs": attrs,
+                  "start_ns": self.t0 + _OFFSET, "end_ns": t1 + _OFFSET}
+        _SPANS.append(record)
+        if self.counts is not None:
+            _PENDING.extend((record, name, t) for (name, _), t in self.device.items())
         if self.follow:
             _ON = False
         return False
@@ -140,11 +158,36 @@ def count(name: str, n: int) -> None:
     COUNTS[name] = COUNTS.get(name, 0) + n
 
 
+def device_count(name: str, device) -> torch.Tensor | None:
+    """Inside a recording call (root span), the call's int64 ``[1]``
+    counter on ``device`` that a kernel adds ``name``'s count to, made
+    zero at its first use in the call; else None."""
+    if not (_ON and _OPEN):
+        return None
+    key = (name, torch.device(device))
+    t = _OPEN[0].device.get(key)
+    if t is None:
+        t = _OPEN[0].device[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
+
+
+def _read_device_counts() -> None:
+    """Adds the device counters of the calls that ended to the calls'
+    ``counts`` and to ``COUNTS`` (one read from the device each)."""
+    for record, name, t in _PENDING:
+        v = int(t.item())
+        COUNTS[name] = COUNTS.get(name, 0) + v
+        counts = record["attrs"]["counts"]
+        counts[name] = counts.get(name, 0) + v
+    _PENDING.clear()
+
+
 def enable() -> None:
     """Clears the spans and ``COUNTS`` and records until :func:`disable`."""
     global _ON
     _SPANS.clear()
     COUNTS.clear()
+    _PENDING.clear()
     _start_clock()
     _ON = True
 
@@ -159,7 +202,9 @@ def collect() -> dict:
     last :func:`enable` (or, never enabled, by profiled calls), in the
     order they ended, and ``COUNTS`` with a snapshot of
     ``cuda_build.LAUNCHES`` and ``PLAIN_ON_CUDA`` (``launches.<kernel>``,
-    ``plain_on_cuda.<kernel>``)."""
+    ``plain_on_cuda.<kernel>``). Reads the device counters first (see
+    :func:`device_count`): call it after the window, not inside a call."""
+    _read_device_counts()
     counters = dict(COUNTS)
     counters.update({f"launches.{k}": v for k, v in cuda_build.LAUNCHES.items()})
     counters.update({f"plain_on_cuda.{k}": v for k, v in cuda_build.PLAIN_ON_CUDA.items()})

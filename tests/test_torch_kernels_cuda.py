@@ -6,6 +6,8 @@ with ``python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py``
 need not have);
 ``chip_smoke.py`` runs the same checks at the main path's shapes."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ from rspc_tpu_torch.ops.nn import (
     nearest_neighbors_stream_cuda,
     nn_sweep,
 )
-from rspc_tpu_torch.ops.nn_check import run_nn_checks
+from rspc_tpu_torch.ops.nn_check import adversarial_cases, run_nn_checks
 
 pytestmark = pytest.mark.cuda
 
@@ -114,20 +116,20 @@ def test_split_kernel_forced_streaming_case(dev):
     assert np.isinf(d2[~sv]).all()
 
 
-def _sweep_on(args, splits):
-    """B1's wrapper with its plan replaced by one of ``splits`` target
-    splits."""
+def _sweep_on(args, splits, fn=nearest_neighbors_cuda):
+    """``fn`` (B1's wrapper by default) with the device plan's splits
+    capped at ``splits`` (exactly ``splits`` where the card's slots hold
+    that many for each live source tile)."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tnn, "card_plan",
-                   lambda n, _: tnn.SweepPlan(-(-n // tnn.SRC_TILE), splits))
-        return nearest_neighbors_cuda(*args)
+        mp.setattr(tnn, "SPLIT_CAP", splits)
+        return fn(*args)
 
 
 @pytest.mark.parametrize("n", [1000, 5000])
 def test_nn_sweep_plan_independence(dev, n):
-    """One input under splits 1, 2, 17, the cap and the default plan
-    (the cap's grid outnumbers the resident slots and runs in waves)
-    gives the same dist2 and idx bit for bit."""
+    """One input under splits 1, 2, 5, 17 and the default plan (the cap
+    leaves it as the slots make it) gives the same dist2 and idx bit for
+    bit."""
     rng = np.random.default_rng(n)
     m = 20_000
     tgt = rng.uniform(-1, 1, (m, 3)).astype(np.float32)
@@ -136,7 +138,7 @@ def test_nn_sweep_plan_independence(dev, n):
     src = (tgt[rng.integers(0, 15_000, n)] + rng.normal(0, 0.01, (n, 3))).astype(np.float32)
     sv = rng.random(n) < 0.9
     args = [torch.from_numpy(a).to(dev) for a in (src, sv, tgt, tv)]
-    d_ref, i_ref = _sweep_on(args, tnn.card_plan(n, dev).splits)
+    d_ref, i_ref = nearest_neighbors_cuda(*args)
     for splits in (1, 2, 5, 17, tnn.MAX_SPLITS):
         d, i = _sweep_on(args, splits)
         assert torch.equal(d, d_ref) and torch.equal(i, i_ref), splits
@@ -144,6 +146,105 @@ def test_nn_sweep_plan_independence(dev, n):
     fin = torch.isfinite(d_p)
     assert torch.equal(torch.isfinite(d_ref), fin)
     torch.testing.assert_close(d_ref[fin], d_p[fin], rtol=1e-5, atol=1e-12)
+
+
+# each nn_check case's (score, index) per source from nn_scores on the
+# card before the plan moved to the device (the host plan, per-split
+# scratch), recorded on an NVIDIA H100 80GB HBM3
+HOST_PLAN_NN_CHECK = Path(__file__).resolve().parent / "nn_sweep_host_plan_nn_check.npz"
+
+
+def _src_live(sv) -> int:
+    rows = np.flatnonzero(sv)
+    return int(rows[-1]) + 1 if rows.size else 0
+
+
+def _vs_plain(args, d_k, i_k):
+    """The kernel's (dist2, idx) against the plain sweep: the same inf
+    pattern, dist2 within 1e-5, indices equal except at exact ties."""
+    d_p, i_p = nearest_neighbors(*args)
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d_k), fin)
+    torch.testing.assert_close(d_k[fin], d_p[fin], rtol=1e-5, atol=1e-12)
+    diff = (fin & (i_k != i_p)).cpu().numpy()
+    if diff.any():
+        src, tgt = args[0].cpu().numpy().astype(np.float64), args[2].cpu().numpy()
+        i_k, i_p = i_k.cpu().numpy(), i_p.cpu().numpy()
+        da = ((src[diff] - tgt[i_k[diff]]) ** 2).sum(-1)
+        db = ((src[diff] - tgt[i_p[diff]]) ** 2).sum(-1)
+        assert (np.abs(da - db) <= 1e-5 + 1e-4 * np.maximum(db, 1.0)).all()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 17, tnn.MAX_SPLITS])
+@pytest.mark.parametrize("case", [c[0] for c in adversarial_cases()])
+def test_nn_kernel_matches_host_plan_kernel(dev, case, splits):
+    """Every nn_check case on both routes under forced split counts:
+    each source before the live bound scores and wins as under the host
+    plan (recorded), bit for bit; the rows past it give (inf, 0) from
+    nn_scores and inf from nn_sweep; nn_sweep agrees with the plain
+    sweep."""
+    _, s, sv, t, tv = next(c for c in adversarial_cases() if c[0] == case)
+    args = [torch.from_numpy(a).to(dev) for a in (s, sv, t, tv)]
+    live = _src_live(sv)
+    with np.load(HOST_PLAN_NN_CHECK) as rec:
+        want_score, want_idx = rec[f"{case}.score"], rec[f"{case}.idx"]
+    for stream in (False, True):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tnn, "STREAM_TARGET", 0 if stream else tnn.STREAM_TARGET)
+            mp.setattr(tnn, "SPLIT_CAP", splits)
+            score, idx = (x.cpu().numpy() for x in tnn.nn_scores(*args))
+            d2, i2 = nn_sweep(*args)
+        np.testing.assert_array_equal(score[:live], want_score[:live])
+        np.testing.assert_array_equal(idx[:live], want_idx[:live])
+        assert np.isposinf(score[live:]).all() and (idx[live:] == 0).all()
+        assert torch.isinf(d2[live:]).all()
+        _vs_plain(args, d2, i2)
+
+
+def _voxel_prefix(dev):
+    """A real voxel grid's output as the sources (its valid rows a
+    prefix of the slots) and another frame's cloud as the target."""
+    from rspc_tpu_torch.capture.synthetic import SyntheticSequence
+    from rspc_tpu_torch.ops.deproject import Intrinsics
+    from rspc_tpu_torch.ops.voxel import voxel_downsample
+    from rspc_tpu_torch.registration.schemes import _as_unorganized
+
+    seq = SyntheticSequence(n_frames=2, yaw_step=-0.08, intr=Intrinsics.simple(160, 120))
+    a, b = (_as_unorganized(c) for c in seq.clouds(device=dev))
+    down = voxel_downsample(a, 0.01, 160 * 120)
+    return down.xyz, down.valid, b.xyz, b.valid
+
+
+@pytest.mark.parametrize("pattern", ["voxel_prefix", "scattered", "none"])
+def test_nn_kernel_source_validity_patterns(dev, pattern):
+    """Prefix validity (a voxel grid's output), scattered validity and
+    no valid source, on every split count and both routes: the same bits
+    on every plan, the plain sweep's answer, and (inf, 0) past the live
+    bound."""
+    rng = np.random.default_rng(9)
+    if pattern == "voxel_prefix":
+        args = [x.contiguous() for x in _voxel_prefix(dev)]
+        sv = args[1].cpu().numpy()
+        assert 0 < _src_live(sv) < sv.size and sv[:_src_live(sv)].all()
+    else:
+        n, m = 7000, 30_000
+        sv = rng.random(n) < 0.3 if pattern == "scattered" else np.zeros(n, bool)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            rng.uniform(-1, 1, (n, 3)).astype(np.float32), sv,
+            rng.uniform(-1, 1, (m, 3)).astype(np.float32), rng.random(m) < 0.7)]
+    live = _src_live(sv)
+    ref = tnn.nn_scores(*args)
+    for stream in (False, True):
+        for splits in (1, 3, tnn.MAX_SPLITS):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(tnn, "STREAM_TARGET", 0 if stream else tnn.STREAM_TARGET)
+                mp.setattr(tnn, "SPLIT_CAP", splits)
+                score, idx = tnn.nn_scores(*args)
+                d2, i2 = nn_sweep(*args)
+            assert torch.equal(score, ref[0]) and torch.equal(idx, ref[1])
+            assert torch.isposinf(score[live:]).all() and not idx[live:].any()
+            assert torch.isinf(d2[live:]).all() and not i2[live:].any()
+            _vs_plain(args, d2, i2)
 
 
 def test_nn_sweep_exact_ties_across_shares(dev):

@@ -133,30 +133,48 @@ def test_routing_matches_jax(m):
     assert tnn.streams(m) == (m >= 2_500_000)
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 5120, 16_384, 30_726])
+@pytest.mark.parametrize("n,src_live", [
+    *((n, None) for n in (1, 255, 256, 257, 4096, 5120, 16_384, 30_726)),
+    # the incremental cells' 307,200 voxel slots, live prefixes of none,
+    # one, and a frame's 140,000-216,000 occupied voxels, and all
+    *((307_200, k) for k in (0, 1, 140_000, 165_000, 216_000, 307_200)),
+])
 @pytest.mark.parametrize("sms,resident", [(132, 8), (132, 3), (114, 7), (132, 6), (1, 1)])
-def test_plan_covers_every_source_once(n, sms, resident):
-    """The NN sweep's launch plan: every source in exactly one tile, the
-    split count within its cap, and one block per (tile, split) item in
-    one wave of the resident slots that leaves fewer than ``tiles`` of
-    them idle (one split, in waves, where the tiles outnumber the slots);
-    the kernel's block-to-item map visits every item once."""
-    p = tnn.plan(n, sms, resident)
+def test_plan_covers_every_source_once(n, src_live, sms, resident):
+    """The NN sweep's plan over the live source prefix (mirroring the
+    kernel's, made on the device): every live source in exactly one
+    tile, the split count within its cap, one block per (tile, split)
+    item in one wave of the resident slots that leaves fewer than
+    ``tiles`` of them idle (one split, in waves, where the tiles
+    outnumber the slots), inside a launch of ``max(slots, tiles(n))``
+    blocks whose others exit; the kernel's block-to-item map visits
+    every item once. A live prefix of all ``n`` rows gives the plan the
+    host made from ``n`` alone."""
+    p = tnn.plan(n, sms, resident, src_live)
+    live = n if src_live is None else src_live
     slots = sms * resident
-    tiles = [range(t * tnn.SRC_TILE, min(n, (t + 1) * tnn.SRC_TILE)) for t in range(p.tiles)]
-    assert sorted(i for r in tiles for i in r) == list(range(n))
+    tiles = [range(t * tnn.SRC_TILE, min(live, (t + 1) * tnn.SRC_TILE)) for t in range(p.tiles)]
+    assert sorted(i for r in tiles for i in r) == list(range(live))
     assert all(len(r) > 0 for r in tiles)
     assert 1 <= p.splits <= tnn.MAX_SPLITS
-    blocks = p.tiles * p.splits
+    assert p.blocks == max(slots, -(-n // tnn.SRC_TILE))
+    items = p.tiles * p.splits
+    assert items <= p.blocks
     if p.tiles <= slots:
-        assert blocks <= slots
-        if p.splits < tnn.MAX_SPLITS:
-            assert blocks > slots - p.tiles
+        assert items <= slots
+        if p.tiles and p.splits < tnn.MAX_SPLITS:
+            assert items > slots - p.tiles
     else:
         assert p.splits == 1
-    # the kernel's map: block b takes tile b % tiles and split b // tiles
-    items = {(b % p.tiles, b // p.tiles) for b in range(blocks)}
-    assert items == {(t, s) for t in range(p.tiles) for s in range(p.splits)}
+    # the kernel's map: block b < items takes tile b % tiles and split
+    # b // tiles; the blocks from items on exit
+    got = [(b % p.tiles, b // p.tiles) for b in range(items)]
+    assert len(set(got)) == items
+    assert set(got) == {(t, s) for t in range(p.tiles) for s in range(p.splits)}
+    if live == n:
+        tiles_n = -(-n // tnn.SRC_TILE)
+        assert (p.tiles, p.splits) == (tiles_n, max(1, min(tnn.MAX_SPLITS, slots // tiles_n)))
+        assert p == tnn.plan(n, sms, resident)
 
 
 @pytest.mark.parametrize("live", [1, 307_200, 2_764_800, 3_072_000])
@@ -171,6 +189,59 @@ def test_shares_cover_live_prefix_once(live, splits):
     assert all(b[k][1] == b[k + 1][0] for k in range(splits - 1))
     assert sum(hi - lo for lo, hi in b) == live
     assert max(hi - lo for lo, hi in b) == -(-live // splits)
+
+
+def _precedes(a, b):
+    """The rule that combines the splits' (score, index) partials: the
+    smaller score, then the lower index (-0.0 equals +0.0)."""
+    return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+@pytest.mark.parametrize("a,b", [
+    ((-3.5, 9), (-1.0, 2)),  # negative scores
+    ((-1e30, 5), (1e30, 1)),
+    ((-1e-45, 5), (0.0, 1)),  # the least subnormals around zero
+    ((1e-45, 1), (0.0, 9)),
+    ((-0.0, 7), (0.0, 3)),  # -0.0 against +0.0: equal, the lower index wins
+    ((0.0, 2), (-0.0, 8)),
+    ((-0.0, 4), (0.0, 4)),
+    ((1.5, 4), (1.5, 11)),  # equal scores: the lower index
+    ((0.1, 2**31 - 1), (0.1, 0)),
+    ((float("inf"), 0), (1e30, 123)),  # +inf carries index 0
+    ((float("inf"), 0), (float("inf"), 0)),
+    ((3.4e38, 2**31 - 1), (float("inf"), 0)),
+])
+def test_packed_key_orders_as_the_combining_rule(a, b):
+    """The kernel's packed (score, index) key (``pack_key``, mirrored):
+    two keys order as the partials do under the combining rule, so the
+    smaller key decodes to the partial the rule keeps; every key
+    round-trips (-0.0 as +0.0) and lies below the fill sentinel, which
+    decodes to (+inf, 0)."""
+    a, b = ((float(np.float32(v)), k) for v, k in (a, b))
+    ka, kb = tnn.pack_key(*a), tnn.pack_key(*b)
+    assert (ka < kb) == _precedes(a, b) and (kb < ka) == _precedes(b, a)
+    want = b if _precedes(b, a) else a
+    assert tnn.unpack_key(min(ka, kb)) == (want[0] + 0.0, want[1])
+    for (v, k), key in ((a, ka), (b, kb)):
+        back = tnn.unpack_key(key)
+        assert back == (v, k) and np.signbit(back[0]) == (v < 0)
+        assert key < tnn.KEY_SENTINEL
+    assert tnn.unpack_key(tnn.KEY_SENTINEL) == (float("inf"), 0)
+    # any written key, +inf with index 0 too, wins over the sentinel
+    assert tnn.pack_key(float("inf"), 0) < tnn.KEY_SENTINEL
+
+
+def test_packed_keys_sort_as_pairs():
+    """Random f32 scores of both signs (with repeats, so that indices
+    break ties) sort by key as (score, index) pairs do."""
+    rng = np.random.default_rng(3)
+    scores = np.concatenate([rng.normal(0, 10, 300), rng.normal(0, 1e-30, 100),
+                             np.repeat(rng.normal(0, 1, 20), 5), [0.0, -0.0, np.inf]])
+    scores = scores.astype(np.float32).tolist()
+    idx = rng.integers(0, 2**31 - 1, len(scores)).tolist()
+    pairs = list(zip(scores, idx))
+    by_key = sorted(pairs, key=lambda p: tnn.pack_key(*p))
+    assert [(v + 0.0, k) for v, k in by_key] == sorted((v + 0.0, k) for v, k in pairs)
 
 
 @pytest.mark.parametrize("stream_target", [tnn.STREAM_TARGET, 10])

@@ -1,18 +1,23 @@
 """The port's tracer (``rspc_tpu_torch/utils/profiling.py``) on the CPU:
-spans, waits and counters off and on, the profiler's clock, the Chrome
-trace, and the spans and counters of one ``IncrementalICP`` registration
-on both of its paths."""
+spans, waits and counters off and on, device counters, the profiler's
+clock, the Chrome trace, the NN sweep's source-row counter, and the spans
+and counters of one ``IncrementalICP`` registration on both of its paths.
+One test, marked ``cuda``, holds the kernels' device-side source-row
+counter on the card (it skips without one)."""
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
 from rspc_tpu_torch.capture.synthetic import SyntheticSequence
 from rspc_tpu_torch.config import PipelineConfig
+from rspc_tpu_torch.ops import nn as tnn
 from rspc_tpu_torch.ops.deproject import Intrinsics
-from rspc_tpu_torch.registration.schemes import IncrementalICP
+from rspc_tpu_torch.ops.voxel import voxel_downsample
+from rspc_tpu_torch.registration.schemes import IncrementalICP, _as_unorganized
 from rspc_tpu_torch.utils import profiling
 
 
@@ -87,6 +92,106 @@ def test_enable_resets_spans_and_counters():
     assert profiling.collect()["spans"] == [] and "k" not in profiling.collect()["counters"]
     counters = profiling.collect()["counters"]
     assert {"launches.nn_sweep", "plain_on_cuda.nn_sweep"} <= set(counters)
+
+
+def test_device_counts_are_read_after_the_call():
+    """A device counter (a CPU tensor stands in for the card's) is one
+    per call and name, made zero at its first use; ``collect`` adds it
+    into the call's ``counts`` and ``COUNTS`` once. Off, or outside any
+    call, there is none."""
+    assert profiling.device_count("rows", "cpu") is None
+    profiling.enable()
+    assert profiling.device_count("rows", "cpu") is None
+    with profiling.span("root"):
+        t = profiling.device_count("rows", "cpu")
+        assert t.dtype == torch.int64 and t.tolist() == [0]
+        with profiling.span("child"):
+            assert profiling.device_count("rows", "cpu") is t
+            t += 5
+        profiling.count("host", 1)
+    with profiling.span("second"):
+        profiling.device_count("rows", "cpu").add_(2)
+    profiling.disable()
+    assert "rows" not in profiling.COUNTS  # nothing read inside the window
+    out = profiling.collect()
+    by = _by_name(out["spans"])
+    assert by["root"]["attrs"]["counts"] == {"host": 1, "rows": 5}
+    assert by["second"]["attrs"]["counts"] == {"rows": 2}
+    assert out["counters"]["rows"] == 7
+    again = profiling.collect()  # read once
+    assert again["counters"]["rows"] == 7 and by["root"]["attrs"]["counts"]["rows"] == 5
+
+
+def test_plain_route_counts_the_valid_rows_it_sweeps():
+    """The plain NN sweep counts the valid source rows it sweeps, and
+    traces the sweep with the rows it was handed."""
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.normal(size=(500, 3)).astype(np.float32))
+    sv = torch.from_numpy(rng.random(300) < 0.6)
+    sv[250:] = False
+    tv = torch.ones(500, dtype=torch.bool)
+    profiling.enable()
+    with profiling.span("root"):
+        tnn.nn_sweep(src, sv, tgt, tv)
+        tnn.nn_scores(src, sv, tgt, tv)
+    profiling.disable()
+    out = profiling.collect()
+    assert out["counters"]["nn.source_rows"] == 2 * int(sv.sum())
+    assert _by_name(out["spans"])["root"]["attrs"]["counts"] == {
+        "nn.source_rows": 2 * int(sv.sum())}
+    sweeps = [s for s in out["spans"] if s["name"] == "nn.sweep"]
+    assert [s["attrs"]["sources"] for s in sweeps] == [300, 300]
+
+
+@pytest.mark.cuda
+def test_kernel_routes_count_the_live_source_rows(monkeypatch):
+    """On the card: both kernel routes count ``src_live`` (the highest
+    valid source index + 1) into the call's ``nn.source_rows``; a traced
+    call makes no sync and at most one device op (the counter's fill)
+    beyond the same sweeps run untraced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(2)
+    n, m, src_live = 5000, 40_000, 3210
+    sv = np.zeros(n, bool)
+    sv[:src_live] = rng.random(src_live) < 0.8
+    sv[src_live - 1] = True
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.normal(size=(n, 3)).astype(np.float32), sv,
+        rng.normal(size=(m, 3)).astype(np.float32), rng.random(m) < 0.9)]
+    monkeypatch.setattr(tnn, "STREAM_TARGET", 30_000)  # B2's route for the second
+
+    def sweeps():
+        tnn.nearest_neighbors_cuda(*args[:2], args[2][:20_000], args[3][:20_000])
+        tnn.nearest_neighbors_stream_cuda(*args)
+
+    def device_ops(traced: bool) -> int:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if traced:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    with profiling.call("root"):
+                        sweeps()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                sweeps()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        return sum(e.device_type() == cuda and not e.is_user_annotation()
+                   for e in prof.profiler.kineto_results.events())
+
+    sweeps()  # warm: the kernels' build and the card's plan
+    untraced = device_ops(False)
+    traced = device_ops(True)
+    assert untraced <= traced <= untraced + 1
+    root = _by_name(profiling.collect()["spans"])["root"]
+    assert root["attrs"]["counts"] == {"nn.source_rows": 2 * src_live}
 
 
 def test_span_encloses_the_profiled_op_on_one_clock():
@@ -181,7 +286,12 @@ def test_incremental_spans_and_counters(clouds, use_scan):
     # the fit's SVD: one wait of two syncs an iteration
     assert counters["sync.fit_svd"] == 2 * names.count("wait.fit_svd") == 2 * iterations
     assert names.count("icp.iter") == names.count("icp.fit") == iterations
-    assert counters["nn.source_rows"] == iterations * VOXEL_CAP
+    # the plain route counts the valid sources it sweeps: each pair's
+    # voxel means, once an ICP iteration
+    valid = [int(voxel_downsample(_as_unorganized(c), config.voxel.leaf_size,
+                                  VOXEL_CAP).valid.sum()) for c in clouds[1:]]
+    assert counters["nn.source_rows"] == sum(
+        v * int(r.iterations) for v, r in zip(valid, scheme.results))
     sweeps = [s for s in spans if s["name"] == "nn.sweep"]
     assert len(sweeps) == iterations
     assert all(s["attrs"]["route"] == "plain" and s["attrs"]["sources"] == VOXEL_CAP
